@@ -1,10 +1,7 @@
 """Worker for the multi-process distributed test (SURVEY.md §4.5):
-run `python tests/_dist_worker.py <pid> <nproc> <port> [backend]` in N
-processes; each forms the global mesh via jax.distributed and runs 2
-sharded PPO updates, printing the final loss (must match across
-processes). ``backend`` = "xla" (default) or "pallas" — the latter runs
-the fused act+grad kernels (interpret mode on CPU) under shard_map
-across REAL process boundaries, not just the virtual mesh."""
+run `python tests/_dist_worker.py <pid> <nproc> <port>` in N processes;
+each forms the global mesh via jax.distributed and runs 2 sharded PPO
+updates, printing the final loss (must match across processes)."""
 
 import os
 import sys
@@ -18,7 +15,6 @@ jax.config.update("jax_platforms", "cpu")
 
 def main() -> None:
     pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    backend = sys.argv[4] if len(sys.argv) > 4 else "xla"
     jax.distributed.initialize(
         f"localhost:{port}", num_processes=nproc, process_id=pid
     )
@@ -30,10 +26,6 @@ def main() -> None:
     mesh = make_mesh(jax.devices())
     tcfg = TrainConfig(num_envs=4 * nproc, unroll_length=4,
                        num_minibatches=2, ppo_epochs=1, hidden_dim=16)
-    if backend == "pallas":
-        tcfg = tcfg.replace(rollout_backend="pallas",
-                            grad_backend="pallas",
-                            pallas_block=4, pallas_interpret=True)
     trainer = make_train(
         small_config(max_steps=8),
         tcfg,

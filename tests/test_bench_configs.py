@@ -1,6 +1,6 @@
 """Throughput benches as pytest-marked tests for the five driver configs
 (SURVEY.md §4.6, BASELINE.md). These run on whatever backend is active
-(CPU in CI — numbers are NOT the TPU numbers; bench.py is the real one)
+(CPU in CI — numbers are NOT device numbers; bench.py on the GPU is)
 and mainly assert the pipelines run end-to-end at each config shape."""
 
 import numpy as np

@@ -49,8 +49,12 @@ def test_train_and_evaluate_checkpoint(tmp_path, capsys):
     recs = [json.loads(l) for l in open(tmp_path / "m.jsonl")]
     assert recs and recs[-1]["step"] == 2
     assert np.isfinite(recs[-1]["loss"])
-    # Run-meta record: the resolved backends (VERDICT r3 item 6).
-    assert recs[0].get("meta") and "backends" in recs[0]
+    # Run-meta record: the devices that produced the numbers.
+    assert recs[0].get("meta")
+    import jax
+
+    assert recs[0]["device"] == {"platform": "cpu", "kind": "cpu",
+                                 "count": len(jax.devices())}
 
     eval_main([
         "--env", "small", "--policy", "checkpoint",

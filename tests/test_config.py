@@ -46,43 +46,18 @@ def test_roundtrip_json():
     assert EnvConfig.from_dict(json.loads(cfg.to_json())) == cfg
 
 
-def test_auto_backend_fallback_warns_on_tpu(monkeypatch, caplog):
-    """log_auto_resolution: a TPU-side fallback to XLA is a WARNING
-    naming the reasons; off-TPU it stays INFO (VERDICT r3 item 6)."""
-    import logging
-
-    import jax
-
-    from warehouse_tpu.train.backends import log_auto_resolution
-
-    with caplog.at_level(logging.INFO, logger="warehouse_tpu"):
-        log_auto_resolution("grad_backend", "xla", ["policy_groups"],
-                            "ppo")
-    assert caplog.records[-1].levelno == logging.INFO  # CPU backend
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    with caplog.at_level(logging.INFO, logger="warehouse_tpu"):
-        log_auto_resolution("grad_backend", "xla", ["policy_groups"],
-                            "ppo")
-    rec = caplog.records[-1]
-    assert rec.levelno == logging.WARNING
-    assert "policy_groups" in rec.getMessage()
+REMOVED_KNOBS = ("rollout_backend", "grad_backend", "pallas_block",
+                 "pallas_interpret", "sgd_block_envs", "sgd_rows_per_block",
+                 "sgd_rnn_block_envs", "impala_block_envs")
 
 
-def test_trainers_report_resolved_backends():
-    """Every trainer tuple carries the RESOLVED backends dict."""
-    import jax
+@pytest.mark.parametrize("knob", REMOVED_KNOBS)
+def test_removed_kernel_knobs_are_rejected(knob):
+    """The kernel-selection fields are gone: passing one (directly or
+    from a saved config dict) is an error, not a silent no-op."""
+    from warehouse_tpu import TrainConfig
 
-    from warehouse_tpu import TrainConfig, small_config
-    from warehouse_tpu.train.impala import make_train_impala
-    from warehouse_tpu.train.ppo import make_train
-    from warehouse_tpu.train.ppo_rnn import make_train_rnn
-
-    cfg = small_config(max_steps=8)
-    t = TrainConfig(num_envs=16, unroll_length=4, num_minibatches=2)
-    for tr in (make_train(cfg, t), make_train_impala(cfg, t),
-               make_train_rnn(cfg, t)):
-        assert set(tr.backends) == {"rollout", "grad"}
-        # CPU backend: auto resolves to xla everywhere.
-        assert tr.backends["rollout"] == "xla"
-        assert tr.backends["grad"] == "xla"
+    with pytest.raises(TypeError, match=knob):
+        TrainConfig(**{knob: 1})
+    with pytest.raises(TypeError, match=knob):
+        TrainConfig.from_dict({"num_envs": 8, knob: 1})

@@ -68,10 +68,11 @@ def test_kill_and_resume(tmp_path):
         if p.poll() is None:
             p.kill()
 
-    killed_at = max(
-        int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
-        if d.startswith("step_") and not d.endswith("tmp")
-    )
+    # Only finalized checkpoints count; a save cut by the kill leaves a
+    # temporary directory that latest_step skips.
+    from warehouse_tpu.train.checkpoint import latest_step
+
+    killed_at = latest_step(str(ckpt_dir))
     assert killed_at >= 4
 
     # Relaunch with --resume and a reachable budget; must complete.

@@ -90,35 +90,6 @@ def test_entry_compiles():
     out = jax.jit(fn)(*args)
     jax.block_until_ready(out)
 
-@pytest.mark.slow
-def test_sharded_pallas_backends_run():
-    """The fused act + grad kernels compose with shard_map over the
-    `data` mesh axis (interpret mode; per-shard local kernels, grads
-    still pmean'd — validates the sharded production path's structure)."""
-    import jax
-
-    from warehouse_tpu.train.ppo import make_train
-
-    mesh = get_mesh()
-    trainer = make_train(
-        small_config(max_steps=8),
-        TrainConfig(num_envs=64, unroll_length=4, num_minibatches=2,
-                    ppo_epochs=2, hidden_dim=32,
-                    rollout_backend="pallas", grad_backend="pallas",
-                    pallas_block=8, pallas_interpret=True),
-        mesh=mesh,
-    )
-    rs = trainer.shard_runner_state(trainer.init(jax.random.PRNGKey(0)))
-    rs, m = trainer.train_step(rs)
-    assert int(rs.update_idx) == 1
-    for k, v in m.items():
-        assert np.isfinite(float(v)), f"{k} not finite"
-    for leaf in jax.tree.leaves(rs.params):
-        per_dev = [np.asarray(s.data) for s in leaf.addressable_shards]
-        for d in per_dev[1:]:
-            np.testing.assert_array_equal(per_dev[0], d)
-
-
 def test_sharded_train_step_epoch_shuffle_once():
     """epoch_shuffle='once' composes with shard_map over the data axis:
     the fixed per-update minibatch partition is built per-shard inside

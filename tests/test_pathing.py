@@ -129,7 +129,7 @@ def test_bfs_equals_plain_greedy_on_open_floor():
 
 @pytest.mark.slow
 def test_bfs_beats_plain_greedy_on_shelves():
-    """The whole point: plain greedy grinds into racks (docs/RESULTS.md),
+    """The whole point: plain greedy grinds into racks,
     greedy_bfs routes around them."""
     import jax
 

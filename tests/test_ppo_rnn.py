@@ -178,92 +178,3 @@ def test_gru_trainer_end_to_end_learns():
             assert np.isfinite(float(v)), f"{k} not finite"
     assert not np.array_equal(
         np.asarray(p0), np.asarray(jax.tree.leaves(rs.params)[0]))
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("arch", ["gru", "lstm"])
-def test_rnn_trainer_grad_backend_equivalence(arch):
-    """grad_backend='pallas' (fused sequence-replay kernel) vs 'xla',
-    same seed, same XLA rollout: identical draw streams (same
-    pre-rollout env permutation + mirrored key split) -> env states
-    BIT-equal, metrics/params to f32 tolerance — for BOTH recurrent
-    cells (LSTM replay is round 4)."""
-    import jax
-
-    trx = make_rnn_trainer(arch, mask_actions=True, kl_coeff=0.1,
-                           entropy_coef_final=0.001)
-    trp = make_rnn_trainer(arch, mask_actions=True, kl_coeff=0.1,
-                           entropy_coef_final=0.001,
-                           grad_backend="pallas", pallas_interpret=True)
-    rsx = trx.init(jax.random.PRNGKey(0))
-    rsp = trp.init(jax.random.PRNGKey(0))
-    for _ in range(3):
-        rsx, mx = trx.train_step(rsx)
-        rsp, mp = trp.train_step(rsp)
-        for k in mx:
-            assert abs(float(mx[k]) - float(mp[k])) < (
-                2e-4 + 1e-3 * abs(float(mx[k]))), k
-    for a, b in zip(jax.tree.leaves(rsx.env_state),
-                    jax.tree.leaves(rsp.env_state)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    np.testing.assert_array_equal(np.asarray(rsx.key),
-                                  np.asarray(rsp.key))
-    for a, b in zip(jax.tree.leaves(rsx.params),
-                    jax.tree.leaves(rsp.params)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=5e-5)
-
-
-@pytest.mark.slow
-def test_rnn_fused_act_and_sgd_train():
-    """rollout_backend='pallas' + grad_backend='pallas' (the fully
-    fused recurrent trained path) runs end-to-end in interpret mode:
-    finite metrics, params move, update counter advances."""
-    import jax
-
-    trainer = make_rnn_trainer(
-        mask_actions=True, rollout_backend="pallas",
-        grad_backend="pallas", pallas_block=8, pallas_interpret=True)
-    rs = trainer.init(jax.random.PRNGKey(0))
-    p0 = jax.tree.leaves(rs.params)[0].copy()
-    for _ in range(2):
-        rs, m = trainer.train_step(rs)
-        for k, v in m.items():
-            assert np.isfinite(float(v)), f"{k} not finite"
-    assert int(rs.update_idx) == 2
-    assert not np.array_equal(
-        np.asarray(p0), np.asarray(jax.tree.leaves(rs.params)[0]))
-
-
-def test_rnn_grad_backend_gate_raises():
-    import pytest as _pytest
-
-    with _pytest.raises(ValueError, match="epoch_shuffle"):
-        make_rnn_trainer(grad_backend="pallas", epoch_shuffle="each",
-                         pallas_interpret=True)
-    with _pytest.raises(ValueError, match="flat_optimizer"):
-        make_rnn_trainer(grad_backend="pallas", flat_optimizer=True,
-                         pallas_interpret=True)
-
-
-def test_rnn_grad_gate_requires_chunk_final_truncation():
-    """Round-4 code-review regression: the fused sequence-replay kernel
-    runs the full T steps with NO carry resets, which is only exact
-    when truncation lands on the chunk's last step — the grad gate must
-    enforce max_steps % unroll_length == 0 (it used to miss it, which
-    would have silently skipped mid-chunk carry resets)."""
-    import pytest as _pytest
-
-    from warehouse_tpu import TrainConfig, small_config
-    from warehouse_tpu.train.ppo_rnn import make_train_rnn
-
-    cfg = small_config(max_steps=10)       # 10 % 4 != 0
-    t = TrainConfig(num_envs=16, unroll_length=4, num_minibatches=2,
-                    hidden_dim=32, grad_backend="pallas",
-                    pallas_interpret=True)
-    with _pytest.raises(ValueError, match="max_steps"):
-        make_train_rnn(cfg, t)
-    # Auto must FALL BACK (not raise) on the same config.
-    tr = make_rnn_trainer(unroll_length=4)
-    tr2 = make_train_rnn(cfg, t.replace(grad_backend="auto"))
-    assert tr2.backends["grad"] == "xla"

@@ -65,8 +65,8 @@ def test_assert_replicated_in_sync():
 
 
 def test_roofline_cost_models():
-    """Analytic roofline models (utils/roofline.py): positive costs,
-    sane relative ordering, and report classification."""
+    """Analytic FLOP models (utils/roofline.py): positive costs, sane
+    relative ordering, and report arithmetic against the H100 peaks."""
     from warehouse_tpu import TrainConfig, medium_config
     from warehouse_tpu.utils import roofline as rl
 
@@ -76,31 +76,81 @@ def test_roofline_cost_models():
     costs = {f: rl.family_cost(f, cfg, tcfg)
              for f in ("ppo", "impala", "gru", "lstm", "cnn")}
     for c in costs.values():
-        assert c.mxu_flops > 0 and c.hbm_bytes > 0 and c.vpu_ops > 0
+        assert c.flops > 0
         assert c.unit_env_steps == 4096 * 16
-    # CNN torso (convs + dense trunk) > plain MLP on learner FLOPs.
-    assert costs["cnn"].mxu_flops > costs["ppo"].mxu_flops
+    # CNN torso (convs + dense trunk) > plain MLP.
+    assert costs["cnn"].flops > costs["ppo"].flops
     # LSTM (4 gates) > GRU (3 gates) > PPO MLP; IMPALA (1 pass) < PPO
-    # (4 epochs) on learner FLOPs.
-    assert costs["lstm"].mxu_flops > costs["gru"].mxu_flops
-    assert costs["gru"].mxu_flops > costs["ppo"].mxu_flops
-    assert costs["impala"].mxu_flops < costs["ppo"].mxu_flops
-    # SGD-phase FLOPs scale linearly in epochs.
-    sgd4 = rl.ppo_sgd_cost(cfg, tcfg)
-    sgd8 = rl.ppo_sgd_cost(cfg, tcfg.replace(ppo_epochs=8))
-    assert abs(sgd8.mxu_flops - 2 * sgd4.mxu_flops) < 1e-6 * sgd8.mxu_flops
+    # (4 epochs).
+    assert costs["lstm"].flops > costs["gru"].flops > costs["ppo"].flops
+    assert costs["impala"].flops < costs["ppo"].flops
+    # Learner FLOPs scale linearly in epochs.
+    l4 = rl.learner_flops(cfg, tcfg)
+    l8 = rl.learner_flops(cfg, tcfg.replace(ppo_epochs=8))
+    assert abs(l8 - 2 * l4) < 1e-6 * l8
+    with pytest.raises(ValueError):
+        rl.family_cost("nope", cfg, tcfg)
 
-    # Greedy: zero matmuls, VPU-classified.
-    g = rl.greedy_rollout_cost(cfg, 1024)
-    assert g.mxu_flops == 0 and g.vpu_ops > 0
-    rep = rl.report(g, 1.0)
-    assert rep["bound"] == "vpu" and rep["mxu_pct"] == 0.0
-
-    # Report arithmetic: sol_frac = sol_ms / measured ms; a measured
-    # time equal to the SoL time reports sol_frac 1.0.
+    # A measured time equal to flops / peak is a peak share of 1.0.
+    kind = "NVIDIA H100 80GB HBM3"
     c = costs["ppo"]
-    sol_s = max(c.mxu_flops / rl.MXU_PEAK, c.hbm_bytes / rl.HBM_PEAK,
-                c.vpu_ops / rl.VPU_PEAK)
-    rep = rl.report(c, sol_s)
-    assert abs(rep["sol_frac"] - 1.0) < 1e-6
-    assert rep["bound"] == "mxu"
+    for precision in ("bf16", "tf32", "fp32"):
+        t = c.flops / rl.PEAKS[kind][precision]
+        rep = rl.report(c, t, kind, precision)
+        assert abs(rep["peak_share"] - 1.0) < 1e-9
+        assert rep["peak"] == precision
+    assert rl.PEAKS[kind]["bf16"] == 989e12
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
+def test_roofline_unknown_device_raises(kind):
+    from warehouse_tpu.utils import roofline as rl
+
+    with pytest.raises(ValueError, match="device_kind"):
+        rl.peaks(kind)
+    with pytest.raises(ValueError):
+        rl.report(rl.Cost("x", 1.0, 1), 1.0, kind, "bf16")
+
+
+def _cache_dir_after(monkeypatch, tmp_path, env_value):
+    import jax
+
+    from warehouse_tpu.utils import cache
+
+    checkout = tmp_path / "checkout_cache"
+    monkeypatch.setattr(cache, "CHECKOUT_CACHE_DIR", str(checkout))
+    if env_value is None:
+        monkeypatch.delenv(cache.ENV_VAR, raising=False)
+    else:
+        monkeypatch.setenv(cache.ENV_VAR, env_value)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        used = cache.enable_compilation_cache()
+        return used, jax.config.jax_compilation_cache_dir, checkout
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_cache_dir_from_env_var_and_nowhere_else(monkeypatch, tmp_path):
+    target = str(tmp_path / "from_env")
+    used, configured, checkout = _cache_dir_after(monkeypatch, tmp_path,
+                                                  target)
+    assert used == configured == target
+    assert os.path.isdir(target)
+    assert not checkout.exists()
+
+
+def test_cache_dir_defaults_to_checkout(monkeypatch, tmp_path):
+    used, configured, checkout = _cache_dir_after(monkeypatch, tmp_path,
+                                                  None)
+    assert used == configured == str(checkout)
+    assert checkout.is_dir()
+
+
+def test_checkout_cache_dir_is_inside_the_repo_and_ignored():
+    from warehouse_tpu.utils import cache
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.CHECKOUT_CACHE_DIR == os.path.join(root, ".jax_cache")
+    with open(os.path.join(root, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()

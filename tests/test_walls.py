@@ -90,13 +90,6 @@ def test_native_parity_with_walls():
     run_parity(cfg, B=8, T=20, policy="random", seed=5)
 
 
-def test_pallas_parity_with_walls():
-    from tests.test_pallas import run_parity
-
-    cfg = WALLED.replace(max_steps=1 << 30)
-    run_parity(cfg, B=16, T=16, block=16, seed=6)
-
-
 def test_render_walls():
     import jax
 

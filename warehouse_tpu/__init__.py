@@ -1,4 +1,4 @@
-"""warehouse_tpu — a TPU-native multi-agent warehouse environment engine.
+"""warehouse_tpu — an accelerator-native multi-agent warehouse environment engine.
 
 Built from scratch with the capabilities of ``ffahleraz/rllib-warehouse``
 (see SURVEY.md), as pure-functional JAX: the env step is a pure function on

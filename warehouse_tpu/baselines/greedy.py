@@ -18,8 +18,7 @@ STAY, UP, DOWN, LEFT, RIGHT = 0, 1, 2, 3, 4
 
 def greedy_actions(cfg: EnvConfig, state: EnvState) -> jnp.ndarray:
     """int32[A] actions from privileged state; vmap over batch for free."""
-    # One-hot read of each agent's request cells (gathers are slow on
-    # TPU — see engine.py note).
+    # One-hot read of each agent's request cells (see engine.py note).
     safe = jnp.clip(state.agent_req, 0, cfg.queue_capacity - 1)
     has = state.agent_req >= 0
     slot_ids = jnp.arange(cfg.queue_capacity, dtype=jnp.int32)

@@ -1,8 +1,8 @@
 """Frozen configuration dataclasses.
 
 Static fields (grid size, agent count, queue capacity, obs radius) are
-SHAPES on TPU: they feed ``jit`` as compile-time constants, and changing
-them triggers recompilation (SURVEY.md §5.6). Capability parity with the
+SHAPES: they feed ``jit`` as compile-time constants, and changing them
+triggers recompilation (SURVEY.md §5.6). Capability parity with the
 reference's ``env_config`` dict + RLlib ``AlgorithmConfig`` (reference
 unreadable this round — see SURVEY.md §0; spec in docs/SEMANTICS.md §12).
 """
@@ -155,9 +155,7 @@ def shelves_config(**kw: Any) -> EnvConfig:
 
 
 # Adam hyperparameters, defined ONCE: every trainer's
-# optax.chain(clip_by_global_norm, adam(lr, ...)) and the fused SGD
-# kernels' in-kernel Adam (pallas/sgd.py, pallas/sgd_rnn.py) read these
-# — changing the optimizer here changes both paths together.
+# optax.chain(clip_by_global_norm, adam(lr, ...)) reads these.
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-5
@@ -188,12 +186,10 @@ class TrainConfig:
     anneal_lr: bool = True
     # Run the optimizer on the raveled parameter vector (optax.flatten):
     # fuses the ~10 per-tensor Adam/global-norm ops into single vector
-    # ops. Measured THROUGHPUT-NEUTRAL at BASELINE config 4 (2.771M vs
-    # 2.775M env-steps/s — the update is not optimizer-bound), so it
-    # defaults off to keep opt_state checkpoint structure stable; it
-    # exists for configs that multiply tiny-op count (vmapped PBT
-    # populations, many-layer torsos). Same math (global-norm reduction
-    # order aside).
+    # ops. Off by default to keep the opt_state checkpoint structure
+    # stable; it exists for configs that multiply tiny-op count (vmapped
+    # PBT populations, many-layer torsos). Same math (global-norm
+    # reduction order aside).
     flat_optimizer: bool = False
     # Linear entropy-coefficient anneal: entropy_coef → entropy_coef_final
     # over num_updates. Negative = disabled (constant entropy_coef).
@@ -202,29 +198,25 @@ class TrainConfig:
     # "env" (default, and what bench.py measures): permute the ENV axis
     # per shuffle (B-row gather) so each minibatch is a random set of
     # env-trajectories — the same composition IMPALA/recurrent-PPO use;
-    # measured curve-equivalent on config 4 (docs/RESULTS.md) and ~35%
-    # faster end-to-end.
+    # learning curves matched "flat" at BASELINE config 4.
     # "flat": RLlib/PureJaxRL-style fresh permutation of all T·B·A
     # samples — statistically cleanest, but a 262k-row random gather
-    # per epoch, which on TPU is row-bound and dominates the update
-    # (measured ~11.5 ms/epoch at BASELINE config 4). Use
-    # ``--rllib-cadence`` to restore the reference stack's behavior.
+    # per epoch at BASELINE config 4. Use ``--rllib-cadence`` to restore
+    # the reference stack's behavior.
     minibatch_mode: str = "env"
     # Epoch shuffle cadence ("once" | "each"). "once" (default, and
     # what bench.py measures): one permutation per update; the
     # ppo_epochs epochs revisit the same minibatch partition
-    # (composition is still re-randomized every update) — measured
-    # +11% trained throughput, curve-equivalent on config 4
-    # (docs/RESULTS.md round-2 session 5). "each": a fresh permutation
-    # gather every epoch (RLlib's behavior; ``--rllib-cadence``).
+    # (composition is still re-randomized every update); learning
+    # curves matched "each" at BASELINE config 4. "each": a fresh
+    # permutation gather every epoch (RLlib's behavior;
+    # ``--rllib-cadence``).
     epoch_shuffle: str = "once"
     # Split each minibatch gradient into K equal micro-batch grads,
     # averaged before ONE optimizer step — the same SGD trajectory up
     # to f32 summation order (advantage normalization is hoisted to
-    # per-minibatch). TPU: per-sample grad cost rises sharply past
-    # ~100k-sample batches (measured 2.3x from 65k to 262k samples at
-    # BASELINE config 4, benchmarks/ab_sgd.py), so micro-batching buys
-    # the fast small-batch regime at big global batches. 1 = off.
+    # per-minibatch). Bounds the per-grad working set at big global
+    # batches. 1 = off.
     micro_batches: int = 1
     # Bootstrap value targets through time-limit truncations (RLlib's
     # behavior): at a truncation boundary GAE/V-trace use V of the TRUE
@@ -233,7 +225,7 @@ class TrainConfig:
     bootstrap_truncated: bool = False
     # Potential-based reward shaping coefficient (Ng et al. 1999;
     # ops/pathing.py potential()). 0 = off. Policy-invariant; densifies
-    # the sparse delivery signal on walled layouts (docs/RESULTS.md).
+    # the sparse delivery signal on walled layouts.
     shaping_coef: float = 0.0
     # Mask actions that walk into walls / off the grid at the policy
     # logits (RLlib action-masking capability; ops/move.py
@@ -250,62 +242,10 @@ class TrainConfig:
     hidden_dim: int = 128
     num_layers: int = 2
     # Compute dtype for the policy torso ("float32" | "bfloat16").
-    # bfloat16 keeps matmuls on the MXU's native dtype; parameters and
-    # the loss stay float32 (models cast logits/values back), so this
-    # is a pure activation/matmul precision knob.
+    # bfloat16 runs the torso's matmuls in bf16; parameters and the loss
+    # stay float32 (models cast logits/values back), so this is a pure
+    # activation/matmul precision knob.
     model_dtype: str = "float32"
-    # Acting-phase backend ("auto" | "xla" | "pallas"). "auto" (the
-    # default) resolves to "pallas" when running on real TPU hardware
-    # AND the config is inside the kernel envelope, else "xla" — so a
-    # default `python -m warehouse_tpu.train` gets the benchmarked fast
-    # path (the resolution is logged by make_train). An EXPLICIT
-    # "pallas" still fails loudly outside the envelope (no silent
-    # fallback). "pallas" runs the whole
-    # T-step rollout — obs construction (ego window OR global view),
-    # MLP forward on the MXU (per-policy-group weights when
-    # policy_groups is set), action masking, potential shaping, gumbel
-    # sampling, env tick — as one fused Mosaic kernel per update
-    # (warehouse_tpu/pallas/act.py) with all state resident in VMEM.
-    # Requires: mlp arch (gru via train/ppo_rnn.py), float32, and
-    # max_steps % unroll_length == 0 (the boundary auto-reset runs
-    # outside the kernel). make_train raises loudly if "pallas" is
-    # requested outside that envelope.
-    rollout_backend: str = "auto"
-    pallas_block: int = 512       # envs per kernel block (VMEM residency)
-    pallas_interpret: bool = False  # CI: run the kernel in interpret mode
-    # SGD-phase backend ("auto" | "xla" | "pallas"); "auto" as for
-    # rollout_backend. "pallas" runs the ENTIRE
-    # epoch/minibatch SGD phase as one fused Mosaic kernel
-    # (warehouse_tpu/pallas/sgd.py): it consumes the act kernel's
-    # batch-minor obs trajectory DIRECTLY (zero transposes/gathers),
-    # streams minibatch blocks from HBM while gradients accumulate in
-    # VMEM, and applies the exact optax clip+Adam update in-kernel with
-    # params/moments VMEM-resident across all ppo_epochs x
-    # num_minibatches steps. Minibatches are contiguous env ranges;
-    # composition is randomized by permuting the ENV STATE once per
-    # update before the rollout ("shuffle the envs, not the data" —
-    # distributionally identical to the env-mode permutation gather).
-    # Under a mesh the same kernel emits per-minibatch grads instead so
-    # XLA pmeans them before the optimizer. Envelope: mlp, float32,
-    # shared policy, epoch_shuffle="once", micro_batches=1,
-    # flat_optimizer=False; action masking IS supported. Matches the
-    # XLA SGD phase to f32 accumulation order (tests/test_grad_kernel).
-    grad_backend: str = "auto"
-    # SGD-kernel block geometry (chip sweep, docs/RESULTS.md r3s1:
-    # 1024/8 = 5.22 ms vs 1024/4 = 5.33 vs 512/4 = 5.90 at config 4).
-    sgd_block_envs: int = 1024    # env columns per SGD-kernel block
-    sgd_rows_per_block: int = 8   # (t, a) row-slots per SGD-kernel block
-    # Recurrent (GRU) sequence-replay SGD kernel block
-    # (warehouse_tpu/pallas/sgd_rnn.py): env columns per block. Each
-    # block runs the full T-step BPTT with the h-sequence in VMEM
-    # scratch ([(T+1)*H, A*blk] f32), so the ceiling is VMEM, not the
-    # MXU — matmuls run at width A*blk regardless.
-    sgd_rnn_block_envs: int = 256
-    # Fused IMPALA V-trace learner kernel block
-    # (warehouse_tpu/pallas/vtrace_sgd.py): env columns per block. The
-    # whole block's (t, a) slots concatenate along lanes, so each layer
-    # is ONE matmul at width T*A*blk (8192 lanes at defaults).
-    impala_block_envs: int = 128
     # Infra
     seed: int = 0
     checkpoint_every: int = 50
@@ -320,8 +260,6 @@ class TrainConfig:
         checks = {
             "minibatch_mode": ("flat", "env"),
             "epoch_shuffle": ("each", "once"),
-            "rollout_backend": ("auto", "xla", "pallas"),
-            "grad_backend": ("auto", "xla", "pallas"),
             "model_dtype": ("float32", "bfloat16"),
         }
         for field, allowed in checks.items():

@@ -2,7 +2,7 @@
 
 Rolls a greedy-baseline (or random) episode and prints per-step ASCII
 renders and the episode summary — the reference's demo script capability,
-running on whatever backend JAX picks (TPU if present).
+running on whatever backend JAX picks (the GPU if present).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched env API: vmap+jit over the pure single-env functions.
 
-The TPU-native replacement for the reference stack's N rollout-worker
+The on-device replacement for the reference stack's N rollout-worker
 processes each stepping its own env copies (SURVEY.md §2.3 DP row): one
 jitted program steps the whole batch in lockstep on-device.
 """
@@ -33,55 +33,6 @@ def step_batch(
 
 
 @partial(jax.jit, static_argnums=0)
-def observe_batch(cfg: EnvConfig, state: EnvState) -> jax.Array:
-    """Observations for a [B]-batched EnvState, float32[B, A, obs_dim]
-    — the same ``ops.obs.observe`` every engine step returns."""
-    from ..ops.obs import observe
-
-    return jax.vmap(
-        lambda s: observe(cfg, s.agent_pos, s.agent_req, s.carrying,
-                          s.req_pickup, s.req_drop, s.req_status)
-    )(state)
-
-
-@partial(jax.jit, static_argnums=0)
-def reset_truncated_batch(
-    cfg: EnvConfig, state: EnvState, reset_keys: jax.Array
-) -> tuple[EnvState, jax.Array, jax.Array]:
-    """Boundary auto-reset for CHUNKED rollouts (the fused act-phase
-    kernel steps T ticks per call and leaves the reset to the caller).
-
-    Where ``state.t >= max_steps``, replaces the env with
-    ``engine.reset(reset_keys[b])`` — ``reset_keys`` must be the
-    ``StepDraws.reset_key`` of the truncating tick, which is exactly
-    what ``step_autoreset_batch``'s in-loop reset consumes, so a
-    chunked rollout + this call is draw-for-draw identical to the
-    per-step path. Returns ``(state, obs, truncated)`` with ``obs`` the
-    post-reset obs for truncated envs and the current obs otherwise
-    (== ``TimeStep.obs`` of the boundary step).
-    """
-    done = state.t >= cfg.max_steps
-    obs = observe_batch(cfg, state)
-
-    def with_reset(op):
-        state, obs = op
-        reset_state, reset_obs = jax.vmap(
-            lambda k: engine.reset(cfg, k)
-        )(reset_keys)
-
-        def merge(r, s):
-            mask = done.reshape(done.shape + (1,) * (r.ndim - 1))
-            return jnp.where(mask, r, s)
-
-        merged = jax.tree.map(merge, reset_state, state)
-        return merged, jnp.where(done[:, None, None], reset_obs, obs)
-
-    state, obs = jax.lax.cond(done.any(), with_reset, lambda op: op,
-                              (state, obs))
-    return state, obs, done
-
-
-@partial(jax.jit, static_argnums=0)
 def step_autoreset_batch(
     cfg: EnvConfig, state: EnvState, actions: jax.Array
 ) -> tuple[EnvState, TimeStep]:
@@ -92,9 +43,8 @@ def step_autoreset_batch(
     pre-step ``state.key``, so recomputing it here reproduces the
     in-step reset draw-for-draw. The difference is purely schedule: the
     per-env in-step reset pays ``reset_draws``'s num_free-element
-    permutation plus a second ``observe`` EVERY tick for EVERY env
-    (measured ~9 ms of the 24 ms BASELINE-config-4 PPO update), while
-    episodes only truncate every ``max_steps`` ticks. Here the whole
+    permutation plus a second ``observe`` EVERY tick for EVERY env,
+    while episodes only truncate every ``max_steps`` ticks. Here the whole
     reset branch sits under one ``lax.cond`` on ``truncated.any()`` and
     executes only on ticks where some env actually truncates (1 in
     max_steps for the synchronized-episode batches every trainer

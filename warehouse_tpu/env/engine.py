@@ -1,6 +1,6 @@
 """The JAX warehouse engine: pure ``reset`` / ``step`` (docs/SEMANTICS.md).
 
-TPU-native core (BASELINE.json:5): ``step(cfg, state, actions) ->
+Accelerator-native core (BASELINE.json:5): ``step(cfg, state, actions) ->
 (EnvState, TimeStep)`` is a pure function of fixed-shape arrays —
 ``jax.vmap`` batches thousands of warehouse instances in lockstep,
 ``lax.scan`` rolls time on-device, ``shard_map`` shards the batch over a
@@ -72,10 +72,10 @@ def step(
 
     # NOTE: every queue-slot READ and WRITE below goes through the [A, R]
     # one-hot matrix `oh` — dense compares + masked sums/selects — never
-    # through `tbl[idx]` gathers or `.at[idx].set` scatters: TPU
-    # scatters serialize (cost ~2/3 of the step before removal) and
-    # per-agent gathers cost another ~30% (6.4M → 10.5M steps/s measured
-    # when replaced with one-hot reads).
+    # through `tbl[idx]` gathers or `.at[idx].set` scatters. This form
+    # was chosen for an accelerator whose scatters serialize; whether it
+    # beats native gathers/scatters on the GPU is unmeasured (ROADMAP
+    # 1.5).
     slot_ids = jnp.arange(R, dtype=jnp.int32)
 
     # 2. Pickup (§5). Only the assigned agent can pick up.

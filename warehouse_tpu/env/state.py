@@ -8,12 +8,13 @@ so the whole state ``vmap``s over the env batch and shards over the mesh.
 from __future__ import annotations
 
 import jax
-from flax import struct
+
+from ..pytree import pytree_dataclass
 
 EMPTY, PENDING, IN_TRANSIT = 0, 1, 2
 
 
-@struct.dataclass
+@pytree_dataclass
 class EnvState:
     agent_pos: jax.Array   # int32[A, 2]
     agent_req: jax.Array   # int32[A]; -1 = unassigned
@@ -26,7 +27,7 @@ class EnvState:
     key: jax.Array         # PRNG key
 
 
-@struct.dataclass
+@pytree_dataclass
 class TimeStep:
     obs: jax.Array         # float32[A, obs_dim] (post-auto-reset when it fires)
     final_obs: jax.Array   # float32[A, obs_dim] — pre-auto-reset obs (== obs

@@ -4,7 +4,7 @@ The compatibility surface of the reference's ``MultiAgentEnv`` contract
 (SURVEY.md C8, [API]): dict-in/dict-out ``reset``/``step`` keyed by
 ``"agent_i"`` strings with ``"__all__"`` in terminated/truncated. This is
 a thin adapter over the batched engine at B=1 (or the NumPy oracle) —
-the TPU-native API is the array-axis one in ``warehouse_tpu.env``; this
+the on-device API is the array-axis one in ``warehouse_tpu.env``; this
 wrapper exists for CPU-side interop, demos, and the parity harness.
 """
 

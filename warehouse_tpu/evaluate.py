@@ -141,7 +141,7 @@ def main(argv=None) -> None:
         # default arch/hidden_dim/num_layers/mask_actions from the
         # metadata so flags only exist as overrides — evaluating a
         # mask-trained checkpoint without re-applying the mask scores
-        # near-zero (docs/RESULTS.md), so the meta default removes that
+        # near-zero, so the meta default removes that
         # footgun for legacy-flag users.
         meta = {}
         meta_path = os.path.join(args.checkpoint_dir, META_NAME)

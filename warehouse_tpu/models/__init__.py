@@ -1,4 +1,4 @@
-"""Actor-critic policy models (flax)."""
+"""Actor-critic policy models (plain JAX)."""
 
 from .policy import (ActorCriticAttn, ActorCriticCNN, ActorCriticMLP,
                      ActorCriticRNN, MultiPolicyActorCritic, make_model,

@@ -27,9 +27,9 @@ def assign_requests(
 ):
     """Sticky nearest-pending assignment; ties → lowest request index."""
     # dist[i, r] = |agent_pos[i] - req_pickup[r]|_1
-    # All writes are one-hot masked selects, not scatters — a traced-index
-    # `.at[r].set` lowers to a serialized TPU scatter (measured ~25% of
-    # the whole env step); `where(slot_ids == r, ...)` fuses on the VPU.
+    # All writes are one-hot masked selects, not traced-index
+    # `.at[r].set` scatters: `where(slot_ids == r, ...)` fuses into the
+    # surrounding elementwise work (engine.py NOTE; ROADMAP 1.5).
     dist = jnp.abs(agent_pos[:, None, :] - req_pickup[None, :, :]).sum(-1)
     slot_ids = jnp.arange(cfg.queue_capacity, dtype=jnp.int32)
     for i in range(cfg.num_agents):
@@ -38,8 +38,7 @@ def assign_requests(
         masked = jnp.where(avail, dist[i], _BIG)
         r = jnp.argmin(masked).astype(jnp.int32)
         # argmin hits an available slot iff any slot is available, so
-        # `avail.any()` avoids the per-env `masked[r]` gather (+24% step
-        # throughput measured).
+        # `avail.any()` avoids the per-env `masked[r]` gather.
         take = need & avail.any()
         agent_req = agent_req.at[i].set(
             jnp.where(take, r, agent_req[i])

@@ -1,11 +1,11 @@
 """Movement & collision resolution as masked array ops.
 
 Implements docs/SEMANTICS.md §4.1 exactly (the oracle twin is
-``OracleEnv._move``). TPU-native shape: no data-dependent Python control
+``OracleEnv._move``). Array-native shape: no data-dependent Python control
 flow — rules 1–3 are A×A boolean matrices, rule 4 is a statically unrolled
 monotone fixed point (A iterations always suffice because each iteration
 only ever invalidates moves). A is small (≤ 8 in all driver configs,
-BASELINE.md), so A×A work is trivially VPU-friendly and ``vmap``s over the
+BASELINE.md), so A×A work is cheap elementwise work and ``vmap``s over the
 env batch for free.
 """
 

@@ -3,9 +3,9 @@
 Fully comparison-based: window/global channels are built by comparing
 window-cell coordinates against entity positions ([A, S², A]/[A, S², R]
 boolean tensors reduced with `any`) — no grids, no scatters, no
-dynamic_slice. TPU rationale (measured): scatter-built channel grids +
-per-agent dynamic_slice windows dominated the PPO step; dense compares
-fuse on the VPU. Out-of-grid window cells fall out as zeros automatically
+dynamic_slice, so the whole construction is elementwise work that XLA
+fuses (whether a scatter-built grid is cheaper on the GPU is ROADMAP
+1.5/2.2). Out-of-grid window cells fall out as zeros automatically
 because out-of-bounds coordinates never equal any in-bounds entity
 position. Oracle twin: ``OracleEnv._observe``.
 """
@@ -23,7 +23,7 @@ PENDING = 1
 def _targets(cfg, agent_pos, agent_req, carrying, req_pickup, req_drop):
     """(has_task bool[A], target int32[A, 2]) per docs/SEMANTICS.md §10.
 
-    One-hot reads instead of gathers (TPU: see engine.py perf note)."""
+    One-hot reads instead of gathers (see the engine.py NOTE)."""
     has_task = agent_req >= 0
     safe = jnp.clip(agent_req, 0, cfg.queue_capacity - 1)
     slot_ids = jnp.arange(cfg.queue_capacity, dtype=jnp.int32)
@@ -127,12 +127,10 @@ def observe(
     k, S = cfg.obs_radius, cfg.window_size
     A = agent_pos.shape[0]
     n = A * S * S
-    # TPU layout note (measured ~8 ms/update at BASELINE config 4 before
-    # this shape discipline): under vmap these arrays get a leading [B]
-    # batch axis, and the MINOR axis maps to the 128 vector lanes. The
-    # natural [A, S², E] compare puts E = num_entities (4–16) on lanes —
-    # 3–12% lane occupancy. Everything below therefore keeps the fused
-    # window axis (A·S² ≈ 100–200) MINOR: compares are [E, A·S²], the
+    # Layout: under vmap these arrays get a leading [B] batch axis. The
+    # natural [A, S², E] compare would put E = num_entities (4–16) on
+    # the minor axis; everything below keeps the fused window axis
+    # (A·S² ≈ 100–200) MINOR instead: compares are [E, A·S²], the
     # channel stack is [4, A·S²], and a single transpose at the end
     # restores the spec's channel-last [S, S, 4] ravel. Same booleans,
     # bit-exact vs the oracle.

@@ -1,12 +1,12 @@
 """All-pairs BFS shortest-path distance fields over the static layout.
 
 The wall/shelf layout is a compile-time constant (``EnvConfig.walls`` is
-frozen config — SURVEY.md §5.6 "grid size … are SHAPES on TPU"), so the
-full all-pairs grid-distance table is computed ONCE on host in NumPy and
+frozen config — SURVEY.md §5.6 "grid size … are SHAPES"), so the full
+all-pairs grid-distance table is computed ONCE on host in NumPy and
 folded into every jitted program that uses it as a literal constant. No
-on-device search ever runs: path planning on TPU is a table read
-(expressed as a one-hot matmul so the hot path stays gather-free, see the
-engine.py layout note).
+on-device search ever runs: path planning is a table read (expressed as
+a one-hot matmul so the hot path stays gather-free, see the engine.py
+layout note).
 
 Used by:
 
@@ -78,8 +78,8 @@ def dist_rows(cfg: EnvConfig, table, target_cell, xp=np):
 
     ``rows[i, c] = table[c, target_cell[i]]`` without gathers: the
     target index is one-hot-encoded and contracted against the table by
-    a matmul, which lowers to an MXU op inside jit instead of a
-    serializing TPU gather (engine.py layout note). Distances are
+    a matmul inside jit instead of a gather (engine.py layout note).
+    Distances are
     ≤ UNREACHABLE < 2^24 so float32 is exact. ``xp`` is the array
     namespace (``numpy`` for the oracle, ``jax.numpy`` inside jit).
     """
@@ -106,8 +106,7 @@ def potential(cfg: EnvConfig, state) -> "jax.Array":  # noqa: F821
     ``γ·φ(s') − φ(s)`` to the reward leaves the optimal policy unchanged
     because φ is a function of the state alone. Used by train/ppo.py when
     ``TrainConfig.shaping_coef > 0`` — it densifies the sparse
-    pickup/delivery signal that collapses vanilla PPO on walled layouts
-    (docs/RESULTS.md "Shelves layout").
+    pickup/delivery signal that collapses vanilla PPO on walled layouts.
     """
     import jax.numpy as jnp
 

@@ -29,14 +29,10 @@ def sample_action(key: jax.Array, logits: jax.Array):
 
     Returns ``(action int32[...], log_prob float32[...])``.
 
-    TPU layout note: the gumbel noise, argmax, and log-softmax all run
-    on the ``[n_act, N]`` transpose so every elementwise op fills all
-    128 vector lanes (same discipline as ``action_log_prob_entropy``);
-    in the natural ``[..., 5]`` layout only 5 of 128 lanes are live.
-    The explicit-gumbel form also pins the draw stream: the fused
-    act-phase kernel (pallas/act.py) precomputes ``gumbel(key,
-    [n_act, N])`` and consumes the identical values, so both backends
-    sample the same action whenever their logits argmax-agree.
+    Layout: the gumbel noise, argmax, and log-softmax all run on the
+    ``[n_act, N]`` transpose, with the long axis minor (same discipline
+    as ``action_log_prob_entropy``). The explicit-gumbel form pins the
+    draw stream: ``gumbel(key, [n_act, N])``.
     """
     n_act = logits.shape[-1]
     lt = logits.reshape(-1, n_act).T                    # [n_act, N]
@@ -72,13 +68,10 @@ def ppo_losses(
     Returns ``(total, (pg_loss, v_loss, entropy, kl))`` — the aux tuple
     order every trainer's metrics dict relies on.
 
-    TPU layout note: the softmax/entropy chain runs on logits TRANSPOSED
-    to ``[num_actions, N]`` so each elementwise op fills all 128 vector
-    lanes — in the natural ``[N, 5]`` layout only 5 of 128 lanes are
-    live, and this chain (not the matmuls) dominated the update
-    (measured 38.1 → 29.3 ms per update at BASELINE config 4, bf16
-    matmuls throughput-neutral). Same math, one [5, N] transpose each
-    for logits and the action one-hot.
+    Layout: the softmax/entropy chain runs on logits TRANSPOSED to
+    ``[num_actions, N]`` so the long axis is minor rather than the
+    5-wide action axis. Same math, one [5, N] transpose each for logits
+    and the action one-hot.
     """
     lp, entropy = action_log_prob_entropy(logits, action)
     ratio = jnp.exp(lp - old_log_prob)
@@ -102,9 +95,9 @@ def ppo_losses(
 
 def action_log_prob_entropy(logits: jax.Array, action: jax.Array):
     """(log π(a|s) with action's shape, mean entropy) from logits
-    ``[..., n_act]`` — computed on the ``[n_act, N]`` transpose so the
-    softmax/entropy chain fills all 128 vector lanes (see ppo_losses'
-    TPU layout note). Shared by the PPO loss and IMPALA's V-trace loss.
+    ``[..., n_act]`` — computed on the ``[n_act, N]`` transpose (see
+    ppo_losses' layout note). Shared by the PPO loss and IMPALA's
+    V-trace loss.
     """
     n_act = logits.shape[-1]
     lt = logits.reshape(-1, n_act).T                    # [n_act, N]
@@ -165,7 +158,6 @@ def minibatch_epochs(
     tx: optax.GradientTransformation,
     pmean_axis: str | None = None,
     micro_batches: int = 1,
-    value_and_grad_fn: Callable | None = None,
     reshuffle_each_epoch: bool = True,
 ):
     """The PPO epoch/minibatch SGD scaffold as two nested ``lax.scan``s.
@@ -178,31 +170,22 @@ def minibatch_epochs(
     ``(params, opt_state, key, losses)`` with losses stacked
     ``[num_epochs, M, 1 + len(aux)]``-style (tuple of arrays).
 
-    ``value_and_grad_fn`` overrides ``jax.value_and_grad(loss_fn)`` —
-    the hook the fused Pallas grad kernel uses
-    (``TrainConfig.grad_backend="pallas"``); same
-    ``(params, mb) -> ((loss, aux), grads)`` contract.
-
     ``micro_batches > 1`` splits each minibatch's gradient into K
     equal-size micro-batch grads, averaged before ONE optimizer step —
-    the same gradient up to f32 summation order (TPU: per-sample cost
-    rises sharply with batch size past ~100k samples — measured 2.3x
-    from 65k to 262k at BASELINE config 4 — so micro-batching buys the
-    small-batch regime without changing the SGD trajectory). The caller
+    the same gradient up to f32 summation order, so it bounds the
+    per-grad working set without changing the SGD trajectory. The caller
     must make its loss micro-size-invariant: means only, and advantage
     normalization hoisted to per-minibatch (``ppo_losses``'s
     ``normalize_adv=False`` path).
     """
 
-    vg = value_and_grad_fn or jax.value_and_grad(loss_fn, has_aux=True)
+    vg = jax.value_and_grad(loss_fn, has_aux=True)
 
     fixed_minibatches = None
     if not reshuffle_each_epoch:
         # "once" mode: one permutation per update; every epoch revisits
         # the same minibatch partition. Removes ppo_epochs-1 full-batch
-        # permutation gathers (~0.53 ms of the 4.6 ms SGD phase at
-        # BASELINE config 4, benchmarks/ab_sgd.py FULL vs NOPERM).
-        # With num_epochs == 1 this is draw-for-draw identical to
+        # permutation gathers. With num_epochs == 1 this is draw-for-draw identical to
         # reshuffling (tests/test_ppo.py).
         key, pkey = jax.random.split(key)
         fixed_minibatches = make_minibatches(pkey)

@@ -3,7 +3,8 @@
 The reference scales by spawning Ray rollout-worker actors and shipping
 sample batches over gRPC/plasma; here the same capability is a 1-D
 ``data`` mesh over all devices: env batches shard along it, params
-replicate, and the one collective per update (grad psum) rides ICI. The
+replicate, and the one collective per update (grad psum) rides the
+cards' interconnect (NVLink within one host). The
 axis set is ``(data, model)`` with ``model=1`` so tensor parallelism is a
 config change, not a rewrite (SURVEY.md §2.3).
 """

@@ -90,9 +90,7 @@ def batched_step_draws(keys: jax.Array, cfg: EnvConfig, T: int):
     BIT-IDENTICAL to ``lax.scan``ning ``vmap(step_draws)`` over T (the
     per-key draw functions are the same code on the same keys), but the
     only sequential work left is the key-advance chain — the T·B scalar
-    draws run as ONE batched program. Measured: the per-step scan was
-    1.29 ms of the 5.2 ms fused update at BASELINE config 4
-    (benchmarks/ab_act.py); this removes most of it.
+    draws run as ONE batched program.
     """
     def chain(ks, _):
         trip = jax.vmap(lambda k: jax.random.split(k, 3))(ks)  # [B, 3, 2]

@@ -5,11 +5,11 @@ Capability parity with the reference stack's deployment path —
 ``compute_single_action()`` / ``compute_actions()`` (SURVEY.md L4/C13,
 [API] tier; the reference mount is empty, so the RLlib public contract
 is the parity surface). The train CLI drops a ``policy_meta.json`` next
-to the orbax step dirs, making a checkpoint directory self-describing:
+to the step dirs, making a checkpoint directory self-describing:
 ``Policy.from_checkpoint(dir)`` rebuilds the env config and model
 without any re-specified flags.
 
-TPU-native notes: the forward pass is one jitted function closed over
+Notes: the forward pass is one jitted function closed over
 the params; batched serving (``compute_actions`` on [B, A, obs_dim])
 is the intended hot path — single-obs serving reuses the same compiled
 program with B=1. Recurrent policies expose ``initial_state()`` and

@@ -3,8 +3,7 @@ PPO, and IMPALA/V-trace.
 
 Lazy re-exports: importing this package must NOT touch jax, so that
 ``python -m warehouse_tpu.train --cpu`` can pick the backend from argv
-before the first backend-initializing array op (the TPU plugin binds at
-first use).
+before the first backend-initializing array op.
 """
 
 from typing import Any

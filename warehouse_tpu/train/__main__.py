@@ -32,8 +32,7 @@ def main(argv=None) -> None:
                         "(impala only). RMSProp's eps=0.1 heavily damps "
                         "the small gradients this env produces — Adam "
                         "learns it in a few hundred updates where "
-                        "RMSProp needs the paper's long-horizon budget "
-                        "(docs/RESULTS.md r4)")
+                        "RMSProp needs the paper's long-horizon budget")
     p.add_argument("--num-envs", type=int, default=4096)
     p.add_argument("--unroll-length", type=int, default=16)
     p.add_argument("--num-updates", type=int, default=200)
@@ -52,7 +51,7 @@ def main(argv=None) -> None:
     p.add_argument("--minibatch-mode", choices=["flat", "env"],
                    default="env",
                    help="PPO epoch shuffle granularity: 'env' (default) "
-                        "= permute env-trajectories (TPU-fast, "
+                        "= permute env-trajectories (B-row gather, "
                         "curve-equivalent), 'flat' = fresh per-sample "
                         "permutation (RLlib-style)")
     p.add_argument("--epoch-shuffle", choices=["each", "once"],
@@ -61,14 +60,12 @@ def main(argv=None) -> None:
                         "permutation per update and reuses it across "
                         "ppo_epochs epochs (drops the per-epoch "
                         "full-batch gather; curve-equivalent on "
-                        "config 4, docs/RESULTS.md); 'each' = RLlib's "
-                        "per-epoch reshuffle")
+                        "config 4); 'each' = RLlib's per-epoch reshuffle")
     p.add_argument("--rllib-cadence", action="store_true",
                    help="restore the reference stack's SGD cadence: "
                         "--minibatch-mode flat --epoch-shuffle each "
-                        "(statistically cleanest, measurably slower on "
-                        "TPU; both alternatives are curve-proven "
-                        "equivalent in docs/RESULTS.md)")
+                        "(statistically cleanest; gathers the whole "
+                        "trajectory every epoch)")
     p.add_argument("--bootstrap-truncated", action="store_true",
                    help="bootstrap value targets through time-limit "
                         "truncations (RLlib behavior) instead of treating "
@@ -80,8 +77,7 @@ def main(argv=None) -> None:
     p.add_argument("--model-dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="policy compute dtype; bfloat16 runs the torso "
-                        "matmuls in the MXU's native precision (params "
-                        "and loss stay float32)")
+                        "matmuls in bf16 (params and loss stay float32)")
     p.add_argument("--arch", choices=["mlp", "cnn", "attn", "gru", "lstm"],
                    default="mlp",
                    help="gru/lstm train a recurrent policy (RLlib "
@@ -90,25 +86,6 @@ def main(argv=None) -> None:
                    help="comma-separated policy group per agent, e.g. "
                         "'0,0,1,1' trains 2 policies (RLlib "
                         "policy_mapping_fn parity); default: shared")
-    p.add_argument("--rollout-backend", choices=["auto", "xla", "pallas"],
-                   default="auto",
-                   help="'pallas' runs the T-step acting phase as one "
-                        "fused Mosaic kernel (obs + MXU forward + "
-                        "masking/shaping + sampling + env tick in VMEM; "
-                        "pallas/act.py). 'auto' (default) picks it on "
-                        "real TPU hardware when in-envelope")
-    p.add_argument("--grad-backend", choices=["auto", "xla", "pallas"],
-                   default="auto",
-                   help="'pallas' runs the ENTIRE epoch/minibatch SGD "
-                        "phase as one fused Mosaic kernel "
-                        "(pallas/sgd.py): zero-copy obs from the act "
-                        "kernel, grads accumulated in VMEM, exact "
-                        "clip+Adam applied in-kernel — 12.5M "
-                        "env-steps/s at BASELINE config 4 with both "
-                        "kernels vs 6.4M all-XLA. 'auto' (default) "
-                        "picks it on real TPU hardware when in-envelope")
-    p.add_argument("--pallas-block", type=int, default=512,
-                   help="envs per act-kernel block (VMEM residency)")
     p.add_argument("--micro-batches", type=int, default=1,
                    help="split each minibatch grad into K averaged "
                         "micro-grads (same SGD trajectory; see "
@@ -170,9 +147,6 @@ def main(argv=None) -> None:
         kl_target=args.kl_target,
         hidden_dim=args.hidden_dim,
         model_dtype=args.model_dtype,
-        rollout_backend=args.rollout_backend,
-        grad_backend=args.grad_backend,
-        pallas_block=args.pallas_block,
         micro_batches=args.micro_batches,
         seed=args.seed,
         checkpoint_every=args.checkpoint_every,
@@ -232,11 +206,11 @@ def main(argv=None) -> None:
             log.info("resumed from update %d", start_update)
 
     metrics = MetricsLogger(args.metrics_path, args.tensorboard_dir)
-    # Record the RESOLVED backends (rollout_backend/grad_backend=auto
-    # resolve per hardware + envelope): the metrics file must say which
-    # compute path actually produced the numbers.
+    # The metrics file names the devices that produced its numbers.
     metrics.log_meta({"algo": args.algo, "arch": args.arch,
-                      "backends": trainer.backends})
+                      "device": {"platform": devices[0].platform,
+                                 "kind": devices[0].device_kind,
+                                 "count": len(devices)}})
     steps_per_update = tcfg.num_envs * tcfg.unroll_length
     t_last = time.time()
     for u in range(start_update, tcfg.num_updates, args.log_every):

@@ -1,7 +1,7 @@
 """On-device IMPALA (V-trace) actor-learner — second algorithm family.
 
 RLlib, the stack under the reference (SURVEY.md §1 L1, §3.1), ships
-IMPALA alongside PPO; this is its TPU-native counterpart, sharing the
+IMPALA alongside PPO; this is its on-device counterpart, sharing the
 Anakin collapse of train/ppo.py: rollout (``lax.scan`` of policy+env)
 and learning run inside ONE jitted program, sharded over the ``data``
 mesh axis with a single grad ``pmean`` per update.
@@ -23,30 +23,25 @@ from __future__ import annotations
 
 import logging
 from functools import partial
-from types import MappingProxyType
-from typing import Any, Callable, Mapping, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 from jax.sharding import PartitionSpec as P
 
 from ..config import ADAM_B1, ADAM_B2, ADAM_EPS, EnvConfig, TrainConfig
 from ..env import engine
-from ..env.batch import (
-    observe_batch,
-    reset_truncated_batch,
-    step_autoreset_batch,
-)
+from ..env.batch import step_autoreset_batch
 from ..models import make_model
 from ..ops.move import valid_action_mask
 from ..ops.ppo_update import action_log_prob_entropy, sample_action
 from ..ops.vtrace import vtrace
 from ..parallel.mesh import DATA_AXIS
+from ..pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class ImpalaRunnerState:
     params: Any
     opt_state: Any
@@ -103,92 +98,6 @@ def make_train_impala(
             f"micro_batches={tcfg.micro_batches} must divide the "
             f"per-minibatch env count {mb_envs_chk}")
 
-    from .backends import log_auto_resolution
-
-    # ONE envelope-problems function per backend for BOTH the auto
-    # resolution and the explicit gate (round-4 code review: no drift).
-    def _rollout_problems(check_lanes: bool):
-        problems = []
-        if arch != "mlp":
-            problems.append(f"arch={arch!r} (kernel implements MLP)")
-        if tcfg.model_dtype != "float32":
-            problems.append("model_dtype")
-        if env_cfg.global_obs:
-            problems.append("global_obs")
-        if env_cfg.max_steps % tcfg.unroll_length:
-            problems.append("max_steps % unroll_length != 0")
-        if b_local % tcfg.pallas_block:
-            problems.append(
-                f"B_local={b_local} % pallas_block={tcfg.pallas_block}")
-        elif check_lanes and not (tcfg.pallas_block % 128 == 0
-                                  or tcfg.pallas_block == b_local):
-            problems.append(f"pallas_block={tcfg.pallas_block} % 128")
-        return problems
-
-    def _grad_problems(check_lanes: bool):
-        # Fused V-trace learner envelope (pallas/vtrace_sgd.py).
-        from ..pallas.sgd import resolve_block_envs
-
-        problems = []
-        if arch != "mlp":
-            problems.append(f"arch={arch!r} (kernel implements MLP)")
-        if tcfg.model_dtype != "float32":
-            problems.append("model_dtype")
-        if tcfg.bootstrap_truncated:
-            problems.append("bootstrap_truncated")
-        if tcfg.micro_batches != 1:
-            problems.append("micro_batches != 1 (the kernel's VMEM "
-                            "block accumulation already is one)")
-        if tcfg.flat_optimizer:
-            problems.append("flat_optimizer")
-        if check_lanes:
-            try:
-                resolve_block_envs(
-                    b_local // tcfg.num_minibatches, b_local,
-                    tcfg.impala_block_envs, False, kind="IMPALA")
-            except ValueError as e:
-                problems.append(str(e))
-        return problems
-
-    rollout_backend = tcfg.rollout_backend
-    if rollout_backend == "auto":
-        # Fast fused acting on real TPU hardware when in-envelope.
-        reasons = _rollout_problems(check_lanes=True)
-        if jax.default_backend() != "tpu":
-            reasons.insert(0, "not on TPU hardware")
-        rollout_backend = "xla" if reasons else "pallas"
-        log_auto_resolution("rollout_backend", rollout_backend,
-                            reasons, "impala")
-
-    grad_backend = tcfg.grad_backend
-    if grad_backend == "auto":
-        # Fused V-trace learner kernel (pallas/vtrace_sgd.py) on real
-        # TPU hardware when in-envelope (round 4 — the learner phase
-        # was the measured 1.9 ms/update deficit vs fused PPO,
-        # benchmarks/ab_impala.py).
-        reasons = _grad_problems(check_lanes=True)
-        if jax.default_backend() != "tpu":
-            reasons.insert(0, "not on TPU hardware")
-        grad_backend = "xla" if reasons else "pallas"
-        log_auto_resolution("grad_backend", grad_backend, reasons,
-                            "impala")
-    use_grad_pallas = grad_backend == "pallas"
-    if use_grad_pallas:
-        problems = _grad_problems(
-            check_lanes=not tcfg.pallas_interpret)
-        if problems:
-            raise ValueError(
-                "grad_backend='pallas' unsupported with (impala): "
-                + ", ".join(problems))
-    use_pallas = rollout_backend == "pallas"
-    if use_pallas:
-        problems = _rollout_problems(
-            check_lanes=not tcfg.pallas_interpret)
-        if problems:
-            raise ValueError(
-                "rollout_backend='pallas' unsupported with: "
-                + ", ".join(problems))
-
     if tcfg.anneal_lr:
         total_steps = (
             tcfg.num_updates * tcfg.impala_passes * tcfg.num_minibatches
@@ -197,19 +106,16 @@ def make_train_impala(
     else:
         lr = tcfg.learning_rate
     # IMPALA's canonical optimizer is RMSProp (Espeholt et al. 2018 §4).
-    # Kept as the default for paper parity, but measured NOT to learn
-    # THIS env at few-hundred-update horizons: eps=0.1 damps its small
-    # gradients to a flat 0.005 del/step curve on both backends
-    # (runs/r4_curves/config4_impala_fused.jsonl), while Adam through
-    # the same kernel reaches PPO's level (0.246,
-    # config4_impala_fused_adam.jsonl). Warn at build so a short
-    # benchmark run is never silently un-learning (VERDICT r4 item 6).
+    # Kept as the default for paper parity, but it does NOT learn THIS
+    # env at few-hundred-update horizons: eps=0.1 damps its small
+    # gradients to a flat deliveries curve at BASELINE config 4, while
+    # Adam reaches PPO's level. Warn at build so a short run is never
+    # silently un-learning.
     if tcfg.impala_rmsprop:
         logging.getLogger("warehouse_tpu").warning(
-            "IMPALA is using its canonical RMSProp (eps=0.1): measured "
-            "flat at few-hundred-update horizons on this env "
-            "(runs/r4_curves/config4_impala_fused.jsonl) — pass "
-            "--impala-adam / impala_rmsprop=False unless you are "
+            "IMPALA is using its canonical RMSProp (eps=0.1), which "
+            "stays flat at few-hundred-update horizons on this env — "
+            "pass --impala-adam / impala_rmsprop=False unless you are "
             "running the paper's long-horizon budget")
     tx = optax.chain(
         optax.clip_by_global_norm(tcfg.max_grad_norm),
@@ -247,80 +153,38 @@ def make_train_impala(
         params = rs.params
         key = rs.key.reshape(2)
 
-        if use_pallas:
-            # Fused act-phase kernel (pallas/act.py) — same integration
-            # as train/ppo.py: boundary auto-reset outside, bit-exact
-            # draw stream (see env/batch.py reset_truncated_batch).
-            from ..pallas.act import ppo_rollout_pallas
-
-            cfg_noar = env_cfg.replace(auto_reset=False)
-            new_env_state, roll, reset_key_last, key = ppo_rollout_pallas(
-                cfg_noar, params, rs.env_state, tcfg.unroll_length, key,
-                tcfg.pallas_block, tcfg.pallas_interpret,
-                tcfg.mask_actions)
-            env_state, last_obs, _ = reset_truncated_batch(
-                cfg_noar, new_env_state, reset_key_last)
-            done = jnp.broadcast_to(
-                roll.truncated[:, :, None], roll.reward.shape)
-            mask = roll.mask
-            if tcfg.bootstrap_truncated:
-                _, boot_last = model.apply(
-                    params, observe_batch(cfg_noar, new_env_state))
-                boot_value = (
-                    jnp.zeros_like(roll.reward).at[-1].set(boot_last))
+        def env_step(carry, _):
+            env_state, obs, key = carry
+            key, akey = jax.random.split(key)
+            logits, _ = model.apply(params, obs)
+            if tcfg.mask_actions:
+                mask = jax.vmap(
+                    lambda p: valid_action_mask(env_cfg, p)
+                )(env_state.agent_pos)
+                logits = jnp.where(mask, logits, -1e9)
             else:
-                boot_value = jnp.zeros_like(roll.reward)
-            traj = ImpalaTransition(roll.obs, roll.action, roll.log_prob,
-                                    roll.reward, done, mask, boot_value)
-            delivered = roll.delivered
-            raw_rew = roll.reward.mean(axis=(1, 2))
-            obs_bm = roll.obs_bm
-        else:
-            def env_step(carry, _):
-                env_state, obs, key = carry
-                key, akey = jax.random.split(key)
-                logits, _ = model.apply(params, obs)
-                if tcfg.mask_actions:
-                    mask = jax.vmap(
-                        lambda p: valid_action_mask(env_cfg, p)
-                    )(env_state.agent_pos)
-                    logits = jnp.where(mask, logits, -1e9)
-                else:
-                    mask = jnp.ones(logits.shape, bool)
-                # Lane-dense sampler (ops/ppo_update.py) — same gumbel
-                # stream the act kernel consumes.
-                action, log_prob = sample_action(akey, logits)  # [B, A]
-                env_state, ts = step_autoreset_batch(
-                    env_cfg, env_state, action.astype(jnp.int32)
-                )
-                done = jnp.broadcast_to(
-                    ts.truncated[:, None], ts.reward.shape
-                )  # [B, A]
-                if tcfg.bootstrap_truncated:
-                    _, boot_value = model.apply(params, ts.final_obs)
-                else:
-                    boot_value = jnp.zeros_like(ts.reward)
-                tr = ImpalaTransition(obs, action, log_prob, ts.reward,
-                                      done, mask, boot_value)
-                return (env_state, ts.obs, key), (tr, ts.delivered,
-                                                  ts.reward.mean())
+                mask = jnp.ones(logits.shape, bool)
+            action, log_prob = sample_action(akey, logits)  # [B, A]
+            env_state, ts = step_autoreset_batch(
+                env_cfg, env_state, action.astype(jnp.int32)
+            )
+            done = jnp.broadcast_to(
+                ts.truncated[:, None], ts.reward.shape
+            )  # [B, A]
+            if tcfg.bootstrap_truncated:
+                _, boot_value = model.apply(params, ts.final_obs)
+            else:
+                boot_value = jnp.zeros_like(ts.reward)
+            tr = ImpalaTransition(obs, action, log_prob, ts.reward,
+                                  done, mask, boot_value)
+            return (env_state, ts.obs, key), (tr, ts.delivered,
+                                              ts.reward.mean())
 
-            (env_state, last_obs, key), (traj, delivered, raw_rew) = (
-                jax.lax.scan(
-                    env_step, (rs.env_state, rs.obs, key), None,
-                    length=tcfg.unroll_length,
-                ))
-            obs_bm = None
-
-        if use_grad_pallas:
-            # Fused V-trace learner phase (pallas/vtrace_sgd.py): the
-            # whole passes x minibatches learner in one kernel,
-            # zero-copy obs from the act kernel.
-            params, opt_state, losses = _learner_phase_pallas(
-                rs, params, traj, last_obs, obs_bm)
-            return _metrics_tail(rs, params, opt_state, env_state,
-                                 last_obs, key, losses, delivered,
-                                 raw_rew)
+        (env_state, last_obs, key), (traj, delivered, raw_rew) = (
+            jax.lax.scan(
+                env_step, (rs.env_state, rs.obs, key), None,
+                length=tcfg.unroll_length,
+            ))
 
         def loss_fn(params, mb, last_obs_mb):
             # mb leaves are [T, Bmb, A, ...]; the V-trace scan runs on T.
@@ -453,87 +317,6 @@ def make_train_impala(
         )
         return new_rs, metrics
 
-    # ------------------------- fused V-trace learner (vtrace_sgd.py)
-    def _learner_phase_pallas(rs, params, traj, last_obs, obs_bm):
-        """The whole IMPALA learner phase via pallas/vtrace_sgd.py.
-        Minibatch m = env columns [m*mbB, (m+1)*mbB) — IMPALA's fixed
-        contiguous slices, verbatim. Single shard: ONE kernel call;
-        meshed: per-minibatch grads + pmean + XLA optimizer."""
-        from ..pallas.sgd import pack_obs_bm
-        from ..pallas.vtrace_sgd import (
-            impala_minibatch_grads_pallas,
-            impala_sgd_phase_pallas,
-            pack_impala_fields,
-            pack_last_obs,
-        )
-
-        D = env_cfg.obs_dim
-        A = env_cfg.num_agents
-        M = tcfg.num_minibatches
-        if obs_bm is None:
-            obs_bm = pack_obs_bm(traj.obs, D)
-        fields = pack_impala_fields(
-            traj.action, traj.behavior_log_prob, traj.reward,
-            traj.done, traj.mask, env_cfg.num_actions)
-        lrows = pack_last_obs(last_obs, D)
-
-        n_steps = tcfg.impala_passes * M
-        kw = dict(
-            num_minibatches=M, unroll_length=tcfg.unroll_length,
-            num_agents=A, gamma=tcfg.gamma, rho_clip=tcfg.rho_clip,
-            c_clip=tcfg.c_clip, value_coef=tcfg.value_coef,
-            mask_actions=tcfg.mask_actions, obs_dim=D,
-            block_envs=tcfg.impala_block_envs,
-            matmul_dtype=tcfg.model_dtype,
-            interpret=tcfg.pallas_interpret,
-        )
-        if mesh is None:
-            # Optimizer-step count read from opt_state itself (the
-            # Adam count, or the lr schedule's count under RMSProp) so
-            # a warm-started opt_state can never diverge from the
-            # XLA backend's bias corrections / schedule (ADVICE r4).
-            # Constant-lr RMSProp keeps no count; fall back to the
-            # update_idx cadence (the count is then inert anyway).
-            from ..pallas.sgd import find_step_count
-
-            count0 = find_step_count(rs.opt_state)
-            if count0 is None:
-                count0 = rs.update_idx * n_steps
-            steps = count0 + jnp.arange(n_steps)
-            if callable(lr):
-                lr_row = jax.vmap(lr)(steps).astype(jnp.float32)
-            else:
-                lr_row = jnp.full((n_steps,), lr, jnp.float32)
-            cnt = (steps + 1).astype(jnp.float32)
-            return impala_sgd_phase_pallas(
-                params, rs.opt_state, obs_bm, fields, lrows, lr_row,
-                1.0 - ADAM_B1 ** cnt, 1.0 - ADAM_B2 ** cnt,
-                tcfg.entropy_coef,
-                num_passes=tcfg.impala_passes,
-                max_grad_norm=tcfg.max_grad_norm,
-                use_rms=tcfg.impala_rmsprop, rms_decay=0.99,
-                b1=ADAM_B1, b2=ADAM_B2,
-                eps=0.1 if tcfg.impala_rmsprop else ADAM_EPS, **kw)
-
-        # Meshed: unrolled per-minibatch grads + pmean + XLA optimizer.
-        opt_state = rs.opt_state
-        rows = []
-        for s in range(n_steps):
-            (loss, aux), grads = impala_minibatch_grads_pallas(
-                params, obs_bm, fields, lrows, s % M,
-                tcfg.entropy_coef, **kw)
-            grads = jax.lax.pmean(grads, DATA_AXIS)
-            loss = jax.lax.pmean(loss, DATA_AXIS)
-            aux = jax.lax.pmean(aux, DATA_AXIS)
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = optax.apply_updates(params, updates)
-            rows.append((loss, *aux))
-        losses = tuple(
-            jnp.stack([r[i] for r in rows]).reshape(
-                tcfg.impala_passes, M)
-            for i in range(4))
-        return params, opt_state, losses
-
     # -------------------------------------------------- jit / shard_map
     init_global = init
     if mesh is None:
@@ -603,7 +386,6 @@ def make_train_impala(
         env_cfg=env_cfg,
         tcfg=tcfg,
         mesh=mesh,
-        backends={"rollout": rollout_backend, "grad": grad_backend},
     )
 
 
@@ -618,6 +400,3 @@ class ImpalaTrainer(NamedTuple):
     env_cfg: EnvConfig
     tcfg: TrainConfig
     mesh: Any
-    # RESOLVED {"rollout": ..., "grad": ...}; immutable default so no
-    # dict is shared across instances (ADVICE r4).
-    backends: Mapping = MappingProxyType({})

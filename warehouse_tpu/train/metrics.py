@@ -2,8 +2,9 @@
 
 Capability parity with RLlib's result dicts + tune console/TensorBoard
 event files: on-device accumulated scalars are fetched once per outer
-chunk and written as JSONL (``metrics.jsonl``) and, when TensorBoard is
-importable, as event files.
+chunk and written as JSONL (``metrics.jsonl``) and, when a TensorBoard
+directory is given, as event files through flax's writer (an optional
+dependency: flax + tensorflow).
 """
 
 from __future__ import annotations
@@ -25,15 +26,17 @@ class MetricsLogger:
         if tensorboard_dir:
             try:
                 from flax.metrics import tensorboard as _tb
-
-                self._tb = _tb.SummaryWriter(tensorboard_dir)
-            except Exception as e:  # TF/TB optional
-                logger.warning("TensorBoard writer unavailable: %s", e)
+            except ImportError as e:
+                raise RuntimeError(
+                    "--tensorboard-dir needs the optional packages flax "
+                    f"and tensorflow, which are not importable: {e}"
+                ) from e
+            self._tb = _tb.SummaryWriter(tensorboard_dir)
 
     def log_meta(self, meta: Mapping) -> None:
-        """One non-scalar metadata record (e.g. the RESOLVED rollout/
-        grad backends) at run start — so metrics.jsonl says which
-        compute path actually produced the numbers."""
+        """One non-scalar metadata record (e.g. the devices the run is
+        on) at run start — so metrics.jsonl says what produced the
+        numbers."""
         rec = {"meta": True, "time": time.time()}
         rec.update(meta)
         if self._f:

@@ -1,8 +1,8 @@
-"""Population Based Training — Ray Tune PBT scheduler parity, TPU-native.
+"""Population Based Training — Ray Tune PBT scheduler parity, on-device.
 
 Tune's PBT (Jaderberg et al. 2017) runs each population member as a
 separate actor process, pausing trials to checkpoint/restore weights on
-exploit and editing their config on explore. The TPU-native design
+exploit and editing their config on explore. The on-device design
 removes every process/checkpoint boundary:
 
 - **The population is a vmap axis.** All members train in ONE compiled
@@ -42,7 +42,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
 
 from ..config import ADAM_B1, ADAM_B2, ADAM_EPS, EnvConfig, TrainConfig
 from ..env import engine
@@ -59,9 +58,10 @@ from ..ops.ppo_update import (
     ppo_losses,
     sample_action,
 )
+from ..pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class MemberState:
     """One population member's training state (vmapped to [P, ...])."""
     params: Any

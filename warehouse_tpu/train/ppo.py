@@ -16,22 +16,16 @@ agents (parameter sharing over the agent axis, SURVEY.md C12).
 from __future__ import annotations
 
 from functools import partial
-from types import MappingProxyType
-from typing import Any, Callable, Mapping, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 from jax.sharding import PartitionSpec as P
 
 from ..config import ADAM_B1, ADAM_B2, ADAM_EPS, EnvConfig, TrainConfig
 from ..env import engine
-from ..env.batch import (
-    observe_batch,
-    reset_truncated_batch,
-    step_autoreset_batch,
-)
+from ..env.batch import step_autoreset_batch
 from ..models import make_model
 from ..ops.gae import gae
 from ..ops.move import valid_action_mask
@@ -46,9 +40,10 @@ from ..ops.ppo_update import (
     sample_action,
 )
 from ..parallel.mesh import DATA_AXIS
+from ..pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class RunnerState:
     params: Any
     opt_state: Any
@@ -147,179 +142,6 @@ def make_train(
         tcfg.minibatch_mode == "env" and tcfg.epoch_shuffle == "once"
     )
 
-    # "auto" backends: the fast fused path on real TPU hardware when
-    # the config is inside the kernel envelopes, "xla" otherwise. An
-    # EXPLICIT "pallas" request still fails loudly below. A fallback to
-    # XLA on real TPU hardware is a WARNING (the user is leaving the
-    # fast path on the hardware it exists for), and the resolved
-    # backends ride home on ``PPOTrainer.backends`` so metrics.jsonl
-    # and bench.py can record what actually ran (VERDICT r3 item 6).
-    from .backends import log_auto_resolution
-
-    # ONE envelope-problems function per backend, consumed by BOTH the
-    # auto resolution (reasons) and the explicit-pallas gate (raise),
-    # so the two paths cannot drift apart (round-4 code review).
-    def _rollout_problems(check_lanes: bool):
-        # The fused act-phase kernel's envelope (pallas/act.py).
-        # global_obs and policy_groups are in-envelope since round 3;
-        # model_dtype="bfloat16" is in-envelope (acting runs f32
-        # in-kernel); arch="cnn" since round 4 (convs as unrolled
-        # dense matmuls, extract_cnn_weights).
-        problems = []
-        if arch not in ("mlp", "cnn"):
-            problems.append(
-                f"arch={arch!r} (kernel implements MLP/CNN)")
-        elif arch == "mlp":
-            # Same VMEM-budget check as the cnn branch below: a large
-            # pallas_block can push the double-buffered obs/talp output
-            # blocks past the cap even with small MLP weights (measured:
-            # block=2048 at config-4 shapes wants ~145MB; v5e VMEM is
-            # 128MB) — fall back named rather than OOM in Mosaic.
-            from ..pallas.act import ACT_VMEM_CAP, act_vmem_estimate
-
-            H, L = tcfg.hidden_dim, tcfg.num_layers
-            Dp = (env_cfg.obs_dim + 7) // 8 * 8
-            wb = 4 * (Dp * H + H + (L - 1) * (H * H + H) + 8 * H + 8)
-            wb *= (max(policy_groups) + 1) if policy_groups else 1
-            est = act_vmem_estimate(
-                env_cfg, tcfg.unroll_length, tcfg.pallas_block, wb)
-            if est > ACT_VMEM_CAP:
-                problems.append(
-                    f"act-kernel VMEM estimate ~{est >> 20}MB (block="
-                    f"{tcfg.pallas_block}) exceeds the "
-                    f"{ACT_VMEM_CAP >> 20}MB cap")
-        elif arch == "cnn":
-            # The unrolled conv matrices must fit the kernel's VMEM
-            # budget alongside the block buffers — global-obs CNN on a
-            # large grid can exceed it (e.g. 15x15 global: the second
-            # conv alone unrolls to ~104 MB); fall back named rather
-            # than crash in Mosaic allocation. The threshold is the
-            # SAME budget arithmetic the kernel hands Mosaic
-            # (pallas/act.py act_vmem_estimate + ACT_VMEM_CAP), with
-            # analytic weight bytes — conv unrolls dominate; the dense
-            # heads are counted via a copies multiplier below.
-            from ..pallas.act import ACT_VMEM_CAP, act_vmem_estimate
-
-            side = (env_cfg.height if env_cfg.global_obs
-                    else env_cfg.window_size)
-            sub = (model.policies[0] if policy_groups is not None
-                   else model)
-            chans = (env_cfg.num_obs_channels, *sub.channels)
-            wb = sum(4 * (side * side) ** 2 * chans[i] * chans[i + 1]
-                     for i in range(len(chans) - 1))
-            # Dense trunk + heads: side²·c_last → hidden → 6-row head.
-            wb += 4 * (side * side * chans[-1] + 8) * tcfg.hidden_dim
-            wb *= (max(policy_groups) + 1) if policy_groups else 1
-            est = act_vmem_estimate(
-                env_cfg, tcfg.unroll_length, tcfg.pallas_block, wb)
-            if est > ACT_VMEM_CAP:
-                problems.append(
-                    f"cnn act-kernel VMEM estimate ~{est >> 20}MB "
-                    f"(unrolled conv weights ~{wb >> 20}MB) exceeds "
-                    f"the {ACT_VMEM_CAP >> 20}MB cap")
-        if env_cfg.max_steps % tcfg.unroll_length:
-            problems.append("max_steps % unroll_length != 0")
-        if b_local % tcfg.pallas_block:
-            problems.append(
-                f"B_local={b_local} % pallas_block={tcfg.pallas_block}")
-        elif check_lanes and not (tcfg.pallas_block % 128 == 0
-                                  or tcfg.pallas_block == b_local):
-            problems.append(f"pallas_block={tcfg.pallas_block} % 128")
-        return problems
-
-    def _grad_problems(check_lanes: bool):
-        # The fused SGD-phase kernel's envelope (pallas/sgd.py; CNN
-        # via pallas/sgd_cnn.py since round 5 — unrolled-dense convs
-        # with grads folded onto the shared 3x3 kernels, measured
-        # rationale in benchmarks/ab_cnn.py / docs/RESULTS.md r5).
-        # Minibatch composition is randomized by permuting the ENV
-        # STATE once per update, so the only supported cadence is the
-        # default env/once one.
-        from ..pallas.sgd import resolve_block_envs
-
-        problems = []
-        if arch not in ("mlp", "cnn"):
-            problems.append(f"arch={arch!r} (kernel implements MLP/CNN)")
-        elif arch == "cnn":
-            if policy_groups is not None:
-                problems.append(
-                    "policy_groups with arch='cnn' (the fused CNN "
-                    "learner is single-policy)")
-            else:
-                # The unrolled conv matrices + grad accumulators +
-                # activation working set must fit VMEM even at the
-                # smallest env block — same arithmetic the kernel's
-                # block resolution uses (pallas/sgd_cnn.py).
-                from ..pallas.sgd import _pick_k_ta
-                from ..pallas.sgd_cnn import (
-                    CNN_VMEM_BUDGET,
-                    cnn_sgd_vmem_estimate,
-                )
-
-                chans = (env_cfg.num_obs_channels, *model.channels)
-                ta = tcfg.unroll_length * env_cfg.num_agents
-                k_ta = _pick_k_ta(ta, tcfg.sgd_rows_per_block, 1)
-                est = cnn_sgd_vmem_estimate(
-                    env_cfg, tcfg, chans, 128, k_ta)
-                if est > CNN_VMEM_BUDGET:
-                    problems.append(
-                        f"cnn SGD-kernel VMEM estimate ~{est >> 20}MB"
-                        " at the smallest env block exceeds the "
-                        f"{CNN_VMEM_BUDGET >> 20}MB budget")
-        if not use_state_shuffle:
-            problems.append("epoch_shuffle != 'once' or "
-                            "minibatch_mode != 'env'")
-        if tcfg.micro_batches != 1:
-            problems.append("micro_batches != 1 (the kernel's VMEM "
-                            "block accumulation already is one)")
-        if tcfg.flat_optimizer:
-            problems.append("flat_optimizer")
-        if b_local % tcfg.num_minibatches:
-            problems.append(
-                f"B_local={b_local} % num_minibatches")
-        elif check_lanes:
-            try:
-                resolve_block_envs(
-                    b_local // tcfg.num_minibatches, b_local,
-                    tcfg.sgd_block_envs, False)
-            except ValueError as e:
-                problems.append(str(e))
-        return problems
-
-    rollout_backend = tcfg.rollout_backend
-    grad_backend = tcfg.grad_backend
-    if rollout_backend == "auto":
-        reasons = _rollout_problems(check_lanes=True)
-        if jax.default_backend() != "tpu":
-            reasons.insert(0, "not on TPU hardware")
-        rollout_backend = "xla" if reasons else "pallas"
-        log_auto_resolution("rollout_backend", rollout_backend,
-                            reasons, "ppo")
-    if grad_backend == "auto":
-        reasons = _grad_problems(check_lanes=True)
-        if jax.default_backend() != "tpu":
-            reasons.insert(0, "not on TPU hardware")
-        grad_backend = "xla" if reasons else "pallas"
-        log_auto_resolution("grad_backend", grad_backend, reasons, "ppo")
-
-    use_pallas = rollout_backend == "pallas"
-    if use_pallas:
-        problems = _rollout_problems(
-            check_lanes=not tcfg.pallas_interpret)
-        if problems:
-            raise ValueError(
-                "rollout_backend='pallas' unsupported with: "
-                + ", ".join(problems))
-
-    use_grad_pallas = grad_backend == "pallas"
-    if use_grad_pallas:
-        problems = _grad_problems(
-            check_lanes=not tcfg.pallas_interpret)
-        if problems:
-            raise ValueError(
-                "grad_backend='pallas' unsupported with: "
-                + ", ".join(problems))
-
     if tcfg.anneal_lr:
         total_steps = (
             tcfg.num_updates * tcfg.ppo_epochs * tcfg.num_minibatches
@@ -375,11 +197,8 @@ def make_train(
             # gather (env slots are exchangeable; each env's trajectory
             # rides its own state key), at ~1000x less gathered bytes.
             # This is how minibatch_mode="env" + epoch_shuffle="once"
-            # is implemented for this trainer on BOTH SGD backends, and
-            # what lets the fused SGD kernel (pallas/sgd.py) consume
-            # the act kernel's obs trajectory with zero data movement.
-            # fold_in (not split): the main draw stream is unadvanced,
-            # so rollout draws stay backend-comparable.
+            # is implemented for this trainer.
+            # fold_in (not split): the main draw stream is unadvanced.
             pkey = jax.random.fold_in(key, 0x5EED)
             perm = jax.random.permutation(pkey, b_local)
             env_state_in = jax.tree.map(lambda x: x[perm], env_state_in)
@@ -389,44 +208,6 @@ def make_train(
         gids_ba = jnp.broadcast_to(
             groups_arr[None, :], (b_local, env_cfg.num_agents)
         )
-
-        if use_pallas:
-            # Fused act-phase kernel: the whole T-step rollout (obs
-            # build, MXU MLP forward, gumbel sampling, env tick) is one
-            # Mosaic kernel with state resident in VMEM; the episode
-            # boundary auto-reset runs outside, draw-for-draw identical
-            # to step_autoreset_batch (env/batch.py).
-            from ..pallas.act import ppo_rollout_pallas
-
-            cfg_noar = env_cfg.replace(auto_reset=False)
-            new_env_state, roll, reset_key_last, key = ppo_rollout_pallas(
-                cfg_noar, params, env_state_in, tcfg.unroll_length, key,
-                tcfg.pallas_block, tcfg.pallas_interpret,
-                tcfg.mask_actions, tcfg.shaping_coef, tcfg.gamma,
-                policy_groups, arch)
-            env_state, last_obs, _ = reset_truncated_batch(
-                cfg_noar, new_env_state, reset_key_last)
-            done = jnp.broadcast_to(
-                roll.truncated[:, :, None], roll.reward.shape)
-            mask = roll.mask
-            if tcfg.bootstrap_truncated:
-                # V of the TRUE (pre-reset) boundary state; done is only
-                # ever True on the chunk's last step (make_train gates
-                # max_steps % unroll == 0), so one row suffices.
-                _, boot_last = apply_model(
-                    params, observe_batch(cfg_noar, new_env_state),
-                    gids_ba)
-                boot_value = (
-                    jnp.zeros_like(roll.value).at[-1].set(boot_last))
-            else:
-                boot_value = jnp.zeros_like(roll.value)
-            traj = Transition(roll.obs, roll.action, roll.log_prob,
-                              roll.value, roll.reward, done, mask,
-                              boot_value)
-            delivered = roll.delivered
-            raw_rew = roll.raw_reward.mean(axis=(1, 2))
-            return _learn(rs, params, key, env_state, last_obs, traj,
-                          delivered, raw_rew, obs_bm=roll.obs_bm)
 
         def env_step(carry, _):
             env_state, obs, key = carry
@@ -479,7 +260,7 @@ def make_train(
 
     # ---------------------------------------------- learn phase (shared)
     def _learn(rs, params, key, env_state, last_obs, traj, delivered,
-               raw_rew, obs_bm=None):
+               raw_rew):
         gids_ba = jnp.broadcast_to(
             groups_arr[None, :], (b_local, env_cfg.num_agents)
         )
@@ -492,18 +273,6 @@ def make_train(
             ),
         )
 
-        if use_grad_pallas:
-            ent_coef = entropy_coef_at(tcfg, rs.update_idx)
-            params, opt_state, losses = _sgd_phase_pallas(
-                rs, params, traj, advantages, targets, obs_bm, ent_coef)
-            # Mirror the one key split minibatch_epochs consumes on the
-            # XLA path (its unused contiguous-partition pkey) so the
-            # two SGD backends stay on identical draw streams — the
-            # backend-equivalence tests rely on it.
-            key, _ = jax.random.split(key)
-            return _finish(rs, params, opt_state, key, env_state,
-                           last_obs, losses, delivered, raw_rew)
-
         gids_tba = jnp.broadcast_to(
             gids_ba[None], (tcfg.unroll_length, *gids_ba.shape)
         )
@@ -513,8 +282,8 @@ def make_train(
         )
         if tcfg.minibatch_mode == "env":
             # Env-major layout [B, T·A, ...]: the epoch shuffle becomes a
-            # B-row gather (row-count-bound on TPU — ~64x fewer rows than
-            # the flat T·B·A gather; see TrainConfig.minibatch_mode).
+            # B-row gather (~64x fewer rows than the flat T·B·A gather;
+            # see TrainConfig.minibatch_mode).
             ta = tcfg.unroll_length * env_cfg.num_agents
             mb_envs = b_local // tcfg.num_minibatches
 
@@ -599,115 +368,6 @@ def make_train(
         )
         return _finish(rs, params, opt_state, key, env_state, last_obs,
                        losses, delivered, raw_rew)
-
-    # -------------------------------- fused Pallas SGD phase (sgd.py)
-    def _sgd_phase_pallas(rs, params, traj, advantages, targets,
-                          obs_bm, ent_coef):
-        """The whole epoch/minibatch SGD phase via pallas/sgd.py.
-
-        Minibatch m = env columns [m*mbB, (m+1)*mbB) — composition was
-        randomized by the env-STATE permutation before the rollout.
-        Single shard: ONE kernel call (params + Adam moments resident
-        in VMEM across all steps). Meshed: the same kernel body emits
-        per-minibatch grads, pmean'd before an XLA optimizer step.
-        """
-        import optax as _optax
-
-        from ..pallas.sgd import (
-            FIELD_ROWS,
-            find_adam_state,
-            normalize_adv_env_minibatch,
-            pack_fields,
-            pack_obs_bm,
-            ppo_minibatch_grads_pallas,
-            ppo_sgd_phase_pallas,
-        )
-
-        D = env_cfg.obs_dim
-        M = tcfg.num_minibatches
-
-        # Advantages normalized per contiguous-env minibatch (the
-        # ppo_losses(normalize_adv=False) convention).
-        adv_n = normalize_adv_env_minibatch(advantages, M)
-
-        if obs_bm is None:
-            # XLA-rollout fallback: ONE layout pass per update into the
-            # kernel's native [T*A*Dp, B] batch-minor form.
-            obs_bm = pack_obs_bm(traj.obs, D)
-
-        fields = pack_fields(traj.action, traj.log_prob, traj.value,
-                             adv_n, targets, traj.mask,
-                             env_cfg.num_actions)
-
-        # The fused head matrix has 8 rows (5 logits + value + pad) and
-        # the fields array 16 rows (5 fixed + num_actions mask rows) —
-        # assert the bounds rather than fail as an opaque reshape error
-        # if the action space ever grows past the layout.
-        assert env_cfg.num_actions + 1 <= 8, (
-            f"fused SGD kernel head layout supports <= 7 actions, got "
-            f"{env_cfg.num_actions}")
-        assert 5 + env_cfg.num_actions <= FIELD_ROWS
-
-        n_steps = tcfg.ppo_epochs * M
-        kw = dict(
-            num_minibatches=M, clip_eps=tcfg.clip_eps,
-            value_coef=tcfg.value_coef,
-            mask_actions=tcfg.mask_actions, obs_dim=D,
-            block_envs=tcfg.sgd_block_envs,
-            rows_per_block=tcfg.sgd_rows_per_block,
-            matmul_dtype=tcfg.model_dtype,
-            interpret=tcfg.pallas_interpret,
-        )
-        if arch == "cnn":
-            # CNN torso: the unrolled-dense conv kernel
-            # (pallas/sgd_cnn.py) — single policy, same contract.
-            from ..pallas.sgd_cnn import (
-                ppo_cnn_minibatch_grads_pallas,
-                ppo_cnn_sgd_phase_pallas,
-            )
-
-            phase_fn = partial(ppo_cnn_sgd_phase_pallas,
-                               env_cfg=env_cfg, tcfg=tcfg)
-            grads_fn = partial(ppo_cnn_minibatch_grads_pallas,
-                               env_cfg=env_cfg, tcfg=tcfg)
-        else:
-            kw["policy_groups"] = policy_groups
-            phase_fn = ppo_sgd_phase_pallas
-            grads_fn = ppo_minibatch_grads_pallas
-        if mesh is None:
-            count0, _, _ = find_adam_state(rs.opt_state)
-            steps = count0 + jnp.arange(n_steps)
-            if callable(lr):
-                lr_row = jax.vmap(lr)(steps).astype(jnp.float32)
-            else:
-                lr_row = jnp.full((n_steps,), lr, jnp.float32)
-            cnt = (steps + 1).astype(jnp.float32)
-            bc1_row = 1.0 - ADAM_B1 ** cnt
-            bc2_row = 1.0 - ADAM_B2 ** cnt
-            return phase_fn(
-                params, rs.opt_state, obs_bm, fields,
-                lr_row, bc1_row, bc2_row, ent_coef, rs.kl_coeff,
-                num_epochs=tcfg.ppo_epochs,
-                max_grad_norm=tcfg.max_grad_norm,
-                b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, **kw)
-
-        # Meshed: unrolled per-minibatch grads + pmean + XLA optimizer.
-        opt_state = rs.opt_state
-        rows = []
-        for s in range(n_steps):
-            (loss, aux), grads = grads_fn(
-                params, obs_bm, fields, s % M, ent_coef, rs.kl_coeff,
-                **kw)
-            grads = jax.lax.pmean(grads, DATA_AXIS)
-            loss = jax.lax.pmean(loss, DATA_AXIS)
-            aux = jax.lax.pmean(aux, DATA_AXIS)
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = _optax.apply_updates(params, updates)
-            rows.append((loss, *aux))
-        losses = tuple(
-            jnp.stack([r[i] for r in rows]).reshape(tcfg.ppo_epochs, M)
-            for i in range(5))
-        return params, opt_state, losses
 
     # ------------------------------------- metrics + new state (shared)
     def _finish(rs, params, opt_state, key, env_state, last_obs,
@@ -822,7 +482,7 @@ def make_train(
         env_cfg=env_cfg,
         tcfg=tcfg,
         mesh=mesh,
-        backends={"rollout": rollout_backend, "grad": grad_backend},
+        train_step_local=_train_step_local,
     )
 
 
@@ -837,6 +497,7 @@ class PPOTrainer(NamedTuple):
     env_cfg: EnvConfig
     tcfg: TrainConfig
     mesh: Any
-    # RESOLVED {"rollout": ..., "grad": ...}; immutable default so no
-    # dict is shared across instances (ADVICE r4).
-    backends: Mapping = MappingProxyType({})
+    # The per-shard update, un-jitted (make_train only): under
+    # ``jax.vmap(..., axis_name=DATA_AXIS)`` over a leading shard axis
+    # it reproduces the meshed ``train_step`` on one device.
+    train_step_local: Callable | None = None

@@ -21,7 +21,6 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 from jax.sharding import PartitionSpec as P
 
 from ..config import ADAM_B1, ADAM_B2, ADAM_EPS, EnvConfig, TrainConfig
@@ -40,10 +39,11 @@ from ..ops.ppo_update import (
     sample_action,
 )
 from ..parallel.mesh import DATA_AXIS
+from ..pytree import pytree_dataclass
 from .ppo import PPOTrainer, Transition
 
 
-@struct.dataclass
+@pytree_dataclass
 class RunnerStateRNN:
     params: Any
     opt_state: Any
@@ -89,111 +89,6 @@ def make_train_rnn(
     # [T, B, A, D] trajectory (the RNN path's biggest layout cost)
     # disappears entirely.
     use_state_shuffle = tcfg.epoch_shuffle == "once"
-
-    from .backends import log_auto_resolution
-
-    # ONE envelope-problems function per backend, consumed by BOTH the
-    # auto resolution (reasons) and the explicit-pallas gate (raise):
-    # the two paths can no longer drift apart (round-4 code review:
-    # the hand-duplicated grad gate had dropped the
-    # max_steps % unroll_length condition the replay kernel needs —
-    # mid-chunk carry resets would have been silently skipped).
-    def _rollout_problems(check_lanes: bool):
-        problems = []
-        if arch not in ("gru", "lstm"):
-            problems.append(
-                f"arch={arch!r} (kernel implements GRU/LSTM)")
-        # model_dtype="bfloat16" IS allowed with the kernel: acting
-        # runs f32 in-kernel (extract weights cast) while the SGD-phase
-        # sequence replay uses bf16 matmuls — the recurrent path is
-        # matmul-bound in the replay (docs/RESULTS.md r3s1/r4; curve
-        # proofs there).
-        if env_cfg.global_obs:
-            problems.append("global_obs")
-        if tcfg.shaping_coef != 0.0:
-            problems.append("shaping_coef")
-        if tcfg.bootstrap_truncated:
-            problems.append("bootstrap_truncated")
-        if env_cfg.max_steps % tcfg.unroll_length:
-            problems.append("max_steps % unroll_length != 0")
-        if b_local % tcfg.pallas_block:
-            problems.append(
-                f"B_local={b_local} % pallas_block={tcfg.pallas_block}")
-        elif check_lanes and not (tcfg.pallas_block % 128 == 0
-                                  or tcfg.pallas_block == b_local):
-            problems.append(f"pallas_block={tcfg.pallas_block} % 128")
-        return problems
-
-    def _grad_problems(check_lanes: bool):
-        from ..pallas.sgd import resolve_block_envs
-
-        problems = []
-        if arch not in ("gru", "lstm"):
-            problems.append(
-                f"arch={arch!r} (kernel implements GRU/LSTM)")
-        if tcfg.epoch_shuffle != "once":
-            problems.append("epoch_shuffle != 'once'")
-        if tcfg.flat_optimizer:
-            problems.append("flat_optimizer")
-        if env_cfg.max_steps % tcfg.unroll_length:
-            # The replay kernel runs the full T steps with NO carry
-            # resets; only chunk-final truncation makes that exact.
-            problems.append("max_steps % unroll_length != 0")
-        if check_lanes:
-            try:
-                # The kernel's OWN resolution (incl. VMEM auto-halving).
-                from ..pallas.act import _pad8
-                from ..pallas.sgd_rnn import _bytes_per_col
-
-                ncar = 2 if arch == "lstm" else 1
-                resolve_block_envs(
-                    b_local // tcfg.num_minibatches, b_local,
-                    tcfg.sgd_rnn_block_envs, False,
-                    _bytes_per_col(tcfg.unroll_length,
-                                   env_cfg.num_agents,
-                                   _pad8(env_cfg.obs_dim),
-                                   tcfg.hidden_dim * ncar),
-                    kind="RNN SGD")
-            except ValueError as e:
-                problems.append(str(e))
-        return problems
-
-    rollout_backend = tcfg.rollout_backend
-    if rollout_backend == "auto":
-        # Fast fused GRU/LSTM acting on real TPU when in-envelope.
-        reasons = _rollout_problems(check_lanes=True)
-        if jax.default_backend() != "tpu":
-            reasons.insert(0, "not on TPU hardware")
-        rollout_backend = "xla" if reasons else "pallas"
-        log_auto_resolution("rollout_backend", rollout_backend,
-                            reasons, "ppo_rnn")
-
-    grad_backend = tcfg.grad_backend
-    if grad_backend == "auto":
-        # Fused sequence-replay SGD kernel (pallas/sgd_rnn.py).
-        reasons = _grad_problems(check_lanes=True)
-        if jax.default_backend() != "tpu":
-            reasons.insert(0, "not on TPU hardware")
-        grad_backend = "xla" if reasons else "pallas"
-        log_auto_resolution("grad_backend", grad_backend, reasons,
-                            "ppo_rnn")
-    use_grad_pallas = grad_backend == "pallas"
-    if use_grad_pallas:
-        problems = _grad_problems(
-            check_lanes=not tcfg.pallas_interpret)
-        if problems:
-            raise ValueError(
-                "grad_backend='pallas' unsupported with (rnn): "
-                + ", ".join(problems))
-
-    use_pallas = rollout_backend == "pallas"
-    if use_pallas:
-        problems = _rollout_problems(
-            check_lanes=not tcfg.pallas_interpret)
-        if problems:
-            raise ValueError(
-                "rollout_backend='pallas' unsupported with: "
-                + ", ".join(problems))
 
     if tcfg.anneal_lr:
         total_steps = (
@@ -253,38 +148,6 @@ def make_train_rnn(
             obs_in = obs_in[perm]
             h0 = jax.tree.map(lambda x: x[perm], h0)
 
-        if use_pallas:
-            # Fused recurrent act kernel (pallas/act.py): GRU cell runs
-            # in-kernel; the boundary reset (env AND carry) runs
-            # outside, matching the per-step semantics because the
-            # envelope restricts truncation to the chunk's last step.
-            from ..env.batch import reset_truncated_batch
-            from ..pallas.act import ppo_rnn_rollout_pallas
-
-            cfg_noar = env_cfg.replace(auto_reset=False)
-            (new_env_state, roll, reset_key_last, key,
-             new_carry) = ppo_rnn_rollout_pallas(
-                cfg_noar, params, env_state_in, h0, tcfg.unroll_length,
-                key, tcfg.pallas_block, tcfg.pallas_interpret,
-                tcfg.mask_actions, arch)
-            env_state, last_obs, done_b = reset_truncated_batch(
-                cfg_noar, new_env_state, reset_key_last)
-            last_h = jax.tree.map(
-                lambda x, ref: jnp.where(
-                    done_b[:, None, None], 0.0, x).astype(ref.dtype),
-                new_carry, rs.carry)
-            done = jnp.broadcast_to(
-                roll.truncated[:, :, None], roll.reward.shape)
-            mask = roll.mask
-            traj = Transition(roll.obs, roll.action, roll.log_prob,
-                              roll.value, roll.reward, done, mask,
-                              jnp.zeros_like(roll.value))
-            delivered = roll.delivered
-            raw_rew = roll.reward.mean(axis=(1, 2))
-            return _learn(rs, params, key, env_state, last_obs, last_h,
-                          h0, traj, delivered, raw_rew,
-                          obs_bm=roll.obs_bm)
-
         def env_step(cr, _):
             env_state, obs, h, key = cr
             key, akey = jax.random.split(key)
@@ -335,7 +198,7 @@ def make_train_rnn(
 
     # ---------------------------------------------- learn phase (shared)
     def _learn(rs, params, key, env_state, last_obs, last_h, h0, traj,
-               delivered, raw_rew, obs_bm=None):
+               delivered, raw_rew):
         _, last_value, _ = model.apply(params, last_obs, last_h)
         advantages, targets = gae(
             traj.reward, traj.value, traj.done, last_value,
@@ -346,20 +209,6 @@ def make_train_rnn(
         )
 
         ent_coef = entropy_coef_at(tcfg, rs.update_idx)
-
-        if use_grad_pallas:
-            # Fused sequence-replay SGD phase (pallas/sgd_rnn.py): the
-            # whole epoch/minibatch BPTT + clip+Adam in one kernel,
-            # zero-copy obs from the GRU act kernel.
-            params, opt_state, losses = _sgd_phase_pallas_rnn(
-                rs, params, h0, traj, advantages, targets, obs_bm,
-                ent_coef)
-            # Mirror the one key split minibatch_epochs consumes so the
-            # two SGD backends stay on identical draw streams.
-            key, _ = jax.random.split(key)
-            return _metrics_tail(rs, params, opt_state, key, env_state,
-                                 last_obs, last_h, losses, delivered,
-                                 raw_rew)
 
         # Sequence batch: [T, B_local, A, ...]; h0 is per-sequence
         # [B_local, ...] and minibatched separately (different env axis).
@@ -382,13 +231,6 @@ def make_train_rnn(
             _, (logits, value) = jax.lax.scan(
                 cell_step, h_init, (obs, mask, done)
             )
-            # NOTE (measured null result, docs/RESULTS.md r3s1): hoisting
-            # the encoder/head/input-side GRU projections out of this
-            # scan into big batched matmuls REGRESSED on-chip (37.4 ->
-            # 53.2 ms/update f32; 25.2 -> 30.5 bf16) — the materialized
-            # [T, N, H] projection tensors cost more HBM traffic than
-            # the per-step ops XLA already fuses. Keep the per-step
-            # apply.
             return ppo_losses(
                 logits, value, action, old_lp, old_v, adv, tgt,
                 clip_eps=tcfg.clip_eps, value_coef=tcfg.value_coef,
@@ -469,95 +311,6 @@ def make_train_rnn(
         )
         return new_rs, metrics
 
-    # --------------------------- fused Pallas SGD phase (sgd_rnn.py)
-    def _sgd_phase_pallas_rnn(rs, params, h0, traj, advantages,
-                              targets, obs_bm, ent_coef):
-        """The whole recurrent epoch/minibatch SGD phase via
-        pallas/sgd_rnn.py. Minibatch m = env columns [m*mbB, (m+1)*mbB)
-        — composition randomized by the pre-rollout env-STATE
-        permutation. Single shard: ONE kernel call (params + Adam
-        moments VMEM-resident across all steps); meshed: per-minibatch
-        grads + pmean + XLA optimizer."""
-        import optax as _optax
-
-        from ..pallas.sgd import (
-            find_adam_state,
-            normalize_adv_env_minibatch,
-            pack_fields,
-            pack_obs_bm,
-        )
-        from ..pallas.sgd_rnn import (
-            ppo_rnn_minibatch_grads_pallas,
-            ppo_rnn_sgd_phase_pallas,
-        )
-
-        D = env_cfg.obs_dim
-        M = tcfg.num_minibatches
-        adv_n = normalize_adv_env_minibatch(advantages, M)
-        if obs_bm is None:
-            # XLA-rollout fallback: one layout pass per update.
-            obs_bm = pack_obs_bm(traj.obs, D)
-        fields = pack_fields(traj.action, traj.log_prob, traj.value,
-                             adv_n, targets, traj.mask,
-                             env_cfg.num_actions)
-        # Rollout-start carry in the act kernel's row layout
-        # (agent-major, batch-minor; f32 — the bf16 torso's carry
-        # casts up). LSTM: c rows then h rows.
-        def carry_rows(x):
-            return x.astype(jnp.float32).transpose(1, 2, 0).reshape(
-                A * tcfg.hidden_dim, b_local)
-
-        if arch == "lstm":
-            h0_rows = jnp.concatenate(
-                [carry_rows(h0[0]), carry_rows(h0[1])], axis=0)
-        else:
-            h0_rows = carry_rows(h0)
-
-        n_steps = tcfg.ppo_epochs * M
-        kw = dict(
-            num_minibatches=M, unroll_length=tcfg.unroll_length,
-            num_agents=A, clip_eps=tcfg.clip_eps,
-            value_coef=tcfg.value_coef,
-            mask_actions=tcfg.mask_actions, obs_dim=D,
-            block_envs=tcfg.sgd_rnn_block_envs,
-            matmul_dtype=tcfg.model_dtype,
-            interpret=tcfg.pallas_interpret,
-        )
-        if mesh is None:
-            count0, _, _ = find_adam_state(rs.opt_state)
-            steps = count0 + jnp.arange(n_steps)
-            if callable(lr):
-                lr_row = jax.vmap(lr)(steps).astype(jnp.float32)
-            else:
-                lr_row = jnp.full((n_steps,), lr, jnp.float32)
-            cnt = (steps + 1).astype(jnp.float32)
-            bc1_row = 1.0 - ADAM_B1 ** cnt
-            bc2_row = 1.0 - ADAM_B2 ** cnt
-            return ppo_rnn_sgd_phase_pallas(
-                params, rs.opt_state, obs_bm, fields, h0_rows,
-                lr_row, bc1_row, bc2_row, ent_coef, rs.kl_coeff,
-                num_epochs=tcfg.ppo_epochs,
-                max_grad_norm=tcfg.max_grad_norm,
-                b1=ADAM_B1, b2=ADAM_B2, eps=ADAM_EPS, **kw)
-
-        # Meshed: unrolled per-minibatch grads + pmean + XLA optimizer.
-        opt_state = rs.opt_state
-        rows = []
-        for s in range(n_steps):
-            (loss, aux), grads = ppo_rnn_minibatch_grads_pallas(
-                params, obs_bm, fields, h0_rows, s % M, ent_coef,
-                rs.kl_coeff, **kw)
-            grads = jax.lax.pmean(grads, DATA_AXIS)
-            loss = jax.lax.pmean(loss, DATA_AXIS)
-            aux = jax.lax.pmean(aux, DATA_AXIS)
-            updates, opt_state = tx.update(grads, opt_state, params)
-            params = _optax.apply_updates(params, updates)
-            rows.append((loss, *aux))
-        losses = tuple(
-            jnp.stack([r[i] for r in rows]).reshape(tcfg.ppo_epochs, M)
-            for i in range(5))
-        return params, opt_state, losses
-
     # -------------------------------------------------- jit / shard_map
     init_global = init
     if mesh is None:
@@ -618,5 +371,4 @@ def make_train_rnn(
         init=init, init_global=init_global, train_step=train_step,
         train_many=train_many, shard_runner_state=shard_runner_state,
         model=model, tx=tx, env_cfg=env_cfg, tcfg=tcfg, mesh=mesh,
-        backends={"rollout": rollout_backend, "grad": grad_backend},
     )

@@ -1,8 +1,8 @@
-"""Hyperparameter sweep harness — Ray Tune capability parity, TPU-native.
+"""Hyperparameter sweep harness — Ray Tune capability parity, on-device.
 
 The reference stack launches hyperparameter trials as separate Ray Tune
 process trials (`tune.run(PPO, config={"lr": tune.grid_search([...])})`
-— SURVEY.md §3.1 [API]). The TPU-native equivalent keeps the whole
+— SURVEY.md §3.1 [API]). The on-device equivalent keeps the whole
 sweep on-device:
 
 - **Seeds are a vmap axis.** Each grid point trains `num_seeds`
@@ -35,17 +35,6 @@ import numpy as np
 from ..config import EnvConfig, TrainConfig
 from .ppo import make_train
 
-
-def _pin_auto_backends(tcfg):
-    """Seed replicas are a vmap axis over the whole train program;
-    vmap-of-Mosaic-kernel is unvalidated here, so 'auto' backends pin
-    to the XLA path inside sweeps (explicit 'pallas' is honored)."""
-    kw = {}
-    if tcfg.rollout_backend == "auto":
-        kw["rollout_backend"] = "xla"
-    if tcfg.grad_backend == "auto":
-        kw["grad_backend"] = "xla"
-    return tcfg.replace(**kw) if kw else tcfg
 
 def _grid_points(grid: dict[str, Sequence[Any]]) -> list[dict[str, Any]]:
     """Cartesian product of the grid, key-sorted for determinism."""
@@ -98,7 +87,6 @@ def run_trial(env_cfg: EnvConfig, tcfg: TrainConfig, num_seeds: int,
     partitions the vmapped program with zero collectives; linear
     scaling over devices for free).
     """
-    tcfg = _pin_auto_backends(tcfg)
     trainer = make_train(env_cfg, tcfg, arch=arch)
     keys = jax.vmap(
         lambda s: jax.random.fold_in(jax.random.PRNGKey(tcfg.seed), s)
@@ -240,7 +228,6 @@ def run_asha(
     for point in points:
         overrides = {**point, "num_updates": int(sum(rung_updates))}
         tcfg = base_tcfg.replace(**overrides)
-        tcfg = _pin_auto_backends(tcfg)
         trainer = make_train(env_cfg, tcfg, arch=arch)
         keys = jax.vmap(
             lambda s: jax.random.fold_in(jax.random.PRNGKey(tcfg.seed), s)

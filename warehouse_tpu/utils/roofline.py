@@ -1,277 +1,138 @@
-"""Analytic FLOP / HBM-byte roofline models for the kernel families.
+"""Analytic matmul-FLOP models of the trained families, and device peaks.
 
-VERDICT r4 item 1: with every driver target exceeded, "is it fast?"
-becomes "how close to the silicon ceiling?". This module answers it
-with closed-form cost models derived from the CONFIG SHAPES (no
-tracing): per-update matmul FLOPs, VPU element-op estimates, and
-HBM<->VMEM bytes for each kernel family, turned into achieved
-TFLOP/s / GB/s and a speed-of-light fraction given a measured time.
+Closed-form per-update FLOP counts derived from the CONFIG SHAPES (no
+tracing), turned into achieved TFLOP/s and a share of the device's
+published peak given a measured time.
 
 Counting conventions (every consumer of these numbers inherits them):
 
-- One multiply-add = 2 FLOPs. ``mxu_flops`` counts ONLY matmul FLOPs
-  (what the MXU can retire); elementwise work is a separate rough
-  ``vpu_ops`` estimate (1 element-op = 1, order-of-magnitude only).
-- A matmul's backward = 2x its forward (dgrad + wgrad); the recurrent
-  replay adds +1x forward for the rematerialized backward sweep
-  (pallas/sgd_rnn.py stores only h_0..h_T and recomputes gates).
-- ``hbm_bytes`` counts arrays that actually cross HBM<->VMEM for the
-  FUSED kernels: streamed per-block inputs/outputs only — params,
-  optimizer moments and recurrent state are VMEM-resident by design
-  (weights are counted ONCE per kernel launch, not per grid step:
-  Mosaic keeps revisited (0,0)-indexed blocks resident).
-- Peaks are TPU v5e (the bench chip): 197 bf16 TFLOP/s MXU (f32
-  accumulate — JAX's default matmul precision feeds the MXU bf16
-  even from f32 arrays), 819 GB/s HBM. The VPU peak is approximate:
-  4 ALUs x (8x128) lanes x ~1.5 GHz ~= 6.1e12 element-ops/s.
+- One multiply-add = 2 FLOPs; only matmul/conv FLOPs are counted.
+- A matmul's backward = 2x its forward (dgrad + wgrad); recurrent
+  replay is counted as forward + backward through the stored
+  sequence (3x forward).
+- One update = the T-step act phase (policy forward per env-step) plus
+  the learner phase (epochs x minibatches of forward + backward).
 
-The speed-of-light (SoL) time of a kernel is
-``max(mxu_flops/MXU_PEAK, hbm_bytes/HBM_PEAK, vpu_ops/VPU_PEAK)``;
-``sol_frac = sol_time / measured_time`` is the fraction of the
-relevant ceiling actually achieved (1.0 = at the roofline).
-
-Reference anchor: BASELINE.json:2 (per-chip throughput north star —
-MFU is its denominator). Consumed by benchmarks/roofline.py (chip
-measurements), bench.py (optional roofline fields in the JSON line),
-and docs/RESULTS.md's roofline table.
+Peaks: one table keyed by ``jax.Device.device_kind``. A device that is
+not in it is an error, not a default.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-# TPU v5e single-chip peaks (public spec numbers).
-MXU_PEAK = 1.97e14      # bf16 matmul FLOP/s (f32 accumulate)
-HBM_PEAK = 8.19e11      # bytes/s
-VPU_PEAK = 6.1e12       # element-ops/s (approximate; see module doc)
+# NVIDIA H100 SXM data sheet: dense rates (no sparsity) at the 700 W
+# power limit. A card set below that limit cannot hold these clocks
+# under a matrix-heavy load — report its power limit beside any share.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16": 989e12,
+        "tf32": 495e12,
+        "fp32": 67e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
+}
 
-_HEAD_ROWS = 8          # fused head matrix rows (5 logits + value + pad)
-_FIELD_ROWS = 16        # packed per-sample field rows (pallas/sgd.py)
-_TALP_ROWS = 16         # act kernel per-slot output rows
+
+def peaks(device_kind: str) -> dict:
+    """The peak table row of ``device_kind``; raises on an unknown one."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no peak rates for device_kind {device_kind!r} "
+            f"(known: {sorted(PEAKS)})") from None
 
 
-class KernelCost(NamedTuple):
-    """Analytic per-UNIT cost of one kernel family (unit: one trainer
-    update for trained families; one B-env episode for greedy)."""
+class Cost(NamedTuple):
+    """Analytic matmul FLOPs of one trainer update."""
 
     name: str
-    mxu_flops: float
-    vpu_ops: float
-    hbm_bytes: float
-    unit_env_steps: int     # env-steps per unit (for steps/s cross-check)
+    flops: float
+    unit_env_steps: int     # env-steps per update (for steps/s cross-check)
 
 
-def _pad8(n: int) -> int:
-    return (n + 7) // 8 * 8
+_HEAD = 6               # logits (5) + value (1) output columns
 
 
-def mlp_fwd_flops(Dp: int, H: int, L: int) -> float:
-    """Forward matmul FLOPs of one agent-slot through the fused MLP:
-    Dp->H, (L-1) x H->H, fused 8-row head."""
-    return 2.0 * (Dp * H + (L - 1) * H * H + H * _HEAD_ROWS)
+def mlp_fwd_flops(D: int, H: int, L: int) -> float:
+    """Forward FLOPs of one agent-slot through the MLP: D->H,
+    (L-1) x H->H, heads."""
+    return 2.0 * (D * H + (L - 1) * H * H + H * _HEAD)
 
 
 def cnn_fwd_flops(cfg, H: int, channels=(16, 32)) -> float:
-    """Forward matmul FLOPs of one agent-slot through the CNN torso
-    (3x3 SAME convs counted as the dense math they perform: 2*9*S²*
-    IC*OC each — the unrolled-matrix form in the act kernel does the
-    same FLOPs plus structural zeros), dense trunk, 8-row head."""
+    """Forward FLOPs of one agent-slot through the CNN torso (3x3 SAME
+    convs: 2*9*S²*IC*OC each), dense trunk, heads."""
     S = cfg.height if cfg.global_obs else cfg.window_size
     C = cfg.num_obs_channels
     chans = (C, *channels)
     conv = sum(2.0 * 9 * S * S * chans[i] * chans[i + 1]
                for i in range(len(chans) - 1))
     dense = 2.0 * (S * S * chans[-1] + 6) * H
-    return conv + dense + 2.0 * H * _HEAD_ROWS
+    return conv + dense + 2.0 * H * _HEAD
 
 
-def cnn_sgd_cost(cfg, tcfg, channels=(16, 32)) -> KernelCost:
-    """One CNN SGD phase (XLA today — train/ppo.py gates arch=='mlp'
-    off the fused kernel): epochs x minibatches of fwd + backward."""
-    A = cfg.num_agents
-    Dp = _pad8(cfg.obs_dim)
-    T, B = tcfg.unroll_length, tcfg.num_envs
-    steps = tcfg.ppo_epochs * tcfg.num_minibatches
-    mbB = B // tcfg.num_minibatches
-    samples = T * A * mbB
-    fwd = cnn_fwd_flops(cfg, tcfg.hidden_dim, channels)
-    mxu = steps * samples * 3.0 * fwd
-    vpu = steps * samples * 80.0
-    hbm = steps * 4.0 * mbB * (T * A * Dp + T * A * _FIELD_ROWS)
-    return KernelCost("cnn_sgd", mxu, vpu, hbm, T * B)
-
-
-def rnn_fwd_flops(Dp: int, H: int, cell: str) -> float:
-    """Forward matmul FLOPs of one agent-slot-step through the
-    recurrent policy: encoder Dp->H, cell (GRU 3 gates / LSTM 4, each
-    H->(H from x) + H->(H from h)), 8-row head."""
+def rnn_fwd_flops(D: int, H: int, cell: str) -> float:
+    """Forward FLOPs of one agent-slot-step through the recurrent
+    policy: encoder D->H, cell (GRU 3 gates / LSTM 4, each H->H from x
+    and H->H from h), heads."""
     gates = 3 if cell == "gru" else 4
-    return 2.0 * (Dp * H + gates * (H * H + H * H) + H * _HEAD_ROWS)
+    return 2.0 * (D * H + gates * 2 * H * H + H * _HEAD)
 
 
-def _env_step_vpu_ops(cfg) -> float:
-    """Rough element-ops per env-step of the in-kernel env tick:
-    assignment scan (A x R distance/select), movement resolution
-    (A x A pairwise + per-agent), queue tick, obs construction
-    (Dp writes per agent with ~3 ops each). Order-of-magnitude."""
-    A, R = cfg.num_agents, cfg.queue_capacity
-    Dp = _pad8(cfg.obs_dim)
-    return (A * R * 16.0        # sticky nearest-request assignment
-            + A * A * 8.0 + A * 32.0   # collision rules + moves
-            + R * 12.0          # request queue tick
-            + A * Dp * 3.0)     # obs row construction
-
-
-def act_phase_cost(cfg, tcfg, arch: str = "mlp") -> KernelCost:
-    """One fused act-phase launch: T-step rollout at B envs
-    (pallas/act.py ppo_rollout_pallas / *_rnn)."""
-    A, R = cfg.num_agents, cfg.queue_capacity
-    Dp = _pad8(cfg.obs_dim)
-    H, L = tcfg.hidden_dim, tcfg.num_layers
-    T, B = tcfg.unroll_length, tcfg.num_envs
+def _fwd_flops(cfg, tcfg, arch: str) -> float:
+    D, H, L = cfg.obs_dim, tcfg.hidden_dim, tcfg.num_layers
     if arch in ("gru", "lstm"):
-        fwd = rnn_fwd_flops(Dp, H, arch)
-    elif arch == "cnn":
-        # True-conv FLOP count; the act kernel executes the unrolled
-        # S²/9x form, so sol_frac understates its retired rate.
-        fwd = cnn_fwd_flops(cfg, H)
-    else:
-        fwd = mlp_fwd_flops(Dp, H, L)
-    mxu = T * B * A * fwd
-    vpu = T * B * _env_step_vpu_ops(cfg) + T * B * A * 5 * 8.0  # sampling
-    hbm = 4.0 * B * (
-        2 * 10 * (A + R)          # state rows in + out
-        + T * 3                   # env draws (u/pick/drop)
-        + T * A * 8               # gumbel rows
-        + T * A * Dp              # obs trajectory out
-        + T * A * _TALP_ROWS      # talp out
-    )
-    return KernelCost(f"act[{arch}]", mxu, vpu, hbm, T * B)
+        return rnn_fwd_flops(D, H, arch)
+    if arch == "cnn":
+        return cnn_fwd_flops(cfg, H)
+    return mlp_fwd_flops(D, H, L)
 
 
-def ppo_sgd_cost(cfg, tcfg) -> KernelCost:
-    """One fused PPO SGD phase: ppo_epochs x num_minibatches steps
-    over the stored trajectory (pallas/sgd.py)."""
-    A = cfg.num_agents
-    Dp = _pad8(cfg.obs_dim)
-    H, L = tcfg.hidden_dim, tcfg.num_layers
-    T, B = tcfg.unroll_length, tcfg.num_envs
-    steps = tcfg.ppo_epochs * tcfg.num_minibatches
-    mbB = B // tcfg.num_minibatches
-    samples = T * A * mbB
-    fwd = mlp_fwd_flops(Dp, H, L)
-    mxu = steps * samples * 3.0 * fwd          # fwd + dgrad + wgrad
-    n_params = (Dp * H + H + (L - 1) * (H * H + H)
-                + H * _HEAD_ROWS + _HEAD_ROWS)
-    vpu = steps * (samples * 64.0              # loss/clip elementwise
-                   + n_params * 10.0)          # clip-norm + Adam
-    hbm = steps * 4.0 * mbB * (T * A * Dp + T * A * _FIELD_ROWS)
-    return KernelCost("ppo_sgd", mxu, vpu, hbm, T * B)
+def act_phase_flops(cfg, tcfg, arch: str = "mlp") -> float:
+    """T-step rollout at B envs: one policy forward per agent-step."""
+    return (tcfg.unroll_length * tcfg.num_envs * cfg.num_agents
+            * _fwd_flops(cfg, tcfg, arch))
 
 
-def rnn_sgd_cost(cfg, tcfg, cell: str = "gru") -> KernelCost:
-    """One fused recurrent replay phase: truncated-BPTT fwd + remat
-    backward over epochs x minibatches (pallas/sgd_rnn.py).
-    bf16 matmuls count the same FLOPs (peak is bf16 anyway)."""
-    A = cfg.num_agents
-    Dp = _pad8(cfg.obs_dim)
-    H = tcfg.hidden_dim
-    T, B = tcfg.unroll_length, tcfg.num_envs
-    steps = tcfg.ppo_epochs * tcfg.num_minibatches
-    mbB = B // tcfg.num_minibatches
-    fwd = rnn_fwd_flops(Dp, H, cell)
-    # fwd (1x) + remat re-forward (1x) + backward (2x) = 4x forward.
-    mxu = steps * T * A * mbB * 4.0 * fwd
-    gates = 3 if cell == "gru" else 4
-    n_params = (Dp * H + H + gates * 2 * H * H + gates * H
-                + H * _HEAD_ROWS + _HEAD_ROWS)
-    vpu = steps * (T * A * mbB * H * (8.0 if cell == "gru" else 10.0)
-                   + n_params * 10.0)
-    hbm = steps * 4.0 * mbB * (T * A * Dp + T * A * _FIELD_ROWS)
-    return KernelCost(f"rnn_sgd[{cell}]", mxu, vpu, hbm, T * B)
+def learner_flops(cfg, tcfg, arch: str = "mlp",
+                  algo: str = "ppo") -> float:
+    """Learner phase: forward + backward (3x forward) over every stored
+    sample, once per epoch (PPO) or pass (IMPALA, plus the last-obs
+    value forward+backward per minibatch)."""
+    samples = tcfg.unroll_length * tcfg.num_envs * cfg.num_agents
+    fwd = _fwd_flops(cfg, tcfg, arch)
+    if algo == "impala":
+        last = tcfg.num_envs * cfg.num_agents
+        return tcfg.impala_passes * (samples + last) * 3.0 * fwd
+    return tcfg.ppo_epochs * samples * 3.0 * fwd
 
 
-def vtrace_sgd_cost(cfg, tcfg) -> KernelCost:
-    """One fused IMPALA learner phase: impala_passes x num_minibatches
-    steps of fwd + V-trace + backward (pallas/vtrace_sgd.py)."""
-    A = cfg.num_agents
-    Dp = _pad8(cfg.obs_dim)
-    H, L = tcfg.hidden_dim, tcfg.num_layers
-    T, B = tcfg.unroll_length, tcfg.num_envs
-    steps = tcfg.impala_passes * tcfg.num_minibatches
-    mbB = B // tcfg.num_minibatches
-    samples = T * A * mbB
-    fwd = mlp_fwd_flops(Dp, H, L)
-    mxu = steps * ((samples + A * mbB) * 3.0 * fwd)  # + last-obs value
-    n_params = (Dp * H + H + (L - 1) * (H * H + H)
-                + H * _HEAD_ROWS + _HEAD_ROWS)
-    vpu = steps * (samples * 64.0 + T * mbB * A * 16.0  # v-trace unroll
-                   + n_params * 10.0)
-    hbm = steps * 4.0 * mbB * (
-        T * A * Dp + T * A * _FIELD_ROWS + A * Dp)
-    return KernelCost("vtrace_sgd", mxu, vpu, hbm, T * B)
+def family_cost(family: str, cfg, tcfg) -> Cost:
+    """Whole-UPDATE cost of a trained family (act + learner phases, the
+    composition ``train_many`` runs)."""
+    arch = {"ppo": "mlp", "impala": "mlp", "ppo_rnn": "gru",
+            "gru": "gru", "lstm": "lstm", "cnn": "cnn"}.get(family)
+    if arch is None:
+        raise ValueError(f"no FLOP model for family {family!r}")
+    algo = "impala" if family == "impala" else "ppo"
+    flops = act_phase_flops(cfg, tcfg, arch) + learner_flops(
+        cfg, tcfg, arch, algo)
+    return Cost(family, flops, tcfg.unroll_length * tcfg.num_envs)
 
 
-def greedy_rollout_cost(cfg, B: int) -> KernelCost:
-    """One whole-episode greedy kernel launch at B envs
-    (pallas/rollout.py): zero matmuls — the env tick is pure VPU work
-    on VMEM-resident state; HBM traffic is endpoints only."""
-    A, R = cfg.num_agents, cfg.queue_capacity
-    T = cfg.max_steps
-    # Greedy has no obs construction; subtract it from the tick model.
-    tick = _env_step_vpu_ops(cfg) - A * _pad8(cfg.obs_dim) * 3.0
-    tick += A * R * 8.0          # greedy nearest-target argmin
-    vpu = T * B * tick
-    hbm = 4.0 * B * (2 * 10 * (A + R)     # state in + out
-                     + T * 3              # draws
-                     + 2 * T)             # delivered + reward out
-    return KernelCost("greedy_rollout", 0.0, vpu, hbm, T * B)
-
-
-def family_cost(family: str, cfg, tcfg) -> KernelCost:
-    """Whole-UPDATE cost of a trained family's fused path: act phase +
-    learner phase (the composition bench.py / train_many measures)."""
-    if family == "ppo":
-        parts = (act_phase_cost(cfg, tcfg, "mlp"), ppo_sgd_cost(cfg, tcfg))
-    elif family == "impala":
-        parts = (act_phase_cost(cfg, tcfg, "mlp"),
-                 vtrace_sgd_cost(cfg, tcfg))
-    elif family in ("ppo_rnn", "gru", "lstm"):
-        cell = "lstm" if family == "lstm" else "gru"
-        parts = (act_phase_cost(cfg, tcfg, cell),
-                 rnn_sgd_cost(cfg, tcfg, cell))
-    elif family == "cnn":
-        parts = (act_phase_cost(cfg, tcfg, "cnn"),
-                 cnn_sgd_cost(cfg, tcfg))
-    else:
-        raise ValueError(f"no roofline model for family {family!r}")
-    return KernelCost(
-        family,
-        sum(p.mxu_flops for p in parts),
-        sum(p.vpu_ops for p in parts),
-        sum(p.hbm_bytes for p in parts),
-        parts[0].unit_env_steps,
-    )
-
-
-def report(cost: KernelCost, seconds: float) -> dict:
-    """Roofline position of a measured per-unit time: achieved rates,
-    % of each peak, the binding resource, and the speed-of-light
-    fraction (1.0 = the kernel IS its binding ceiling)."""
-    t_mxu = cost.mxu_flops / MXU_PEAK
-    t_hbm = cost.hbm_bytes / HBM_PEAK
-    t_vpu = cost.vpu_ops / VPU_PEAK
-    sol = max(t_mxu, t_hbm, t_vpu)
-    bound = {t_mxu: "mxu", t_hbm: "hbm", t_vpu: "vpu"}[sol]
+def report(cost: Cost, seconds: float, device_kind: str,
+           precision: str) -> dict:
+    """Achieved matmul rate of a measured per-update time and its share
+    of the device's published ``precision`` peak ("bf16" | "tf32" |
+    "fp32")."""
+    peak = peaks(device_kind)[precision]
+    rate = cost.flops / seconds
     return {
         "name": cost.name,
-        "ms": round(seconds * 1e3, 3),
-        "mxu_tflops": round(cost.mxu_flops / seconds / 1e12, 2),
-        "mxu_pct": round(100 * t_mxu / seconds, 1),
-        "hbm_gbps": round(cost.hbm_bytes / seconds / 1e9, 1),
-        "hbm_pct": round(100 * t_hbm / seconds, 1),
-        "vpu_pct": round(100 * t_vpu / seconds, 1),
-        "bound": bound,
-        "sol_ms": round(sol * 1e3, 3),
-        "sol_frac": round(sol / seconds, 3),
+        "ms": seconds * 1e3,
+        "tflops": rate / 1e12,
+        "peak": precision,
+        "peak_share": rate / peak,
     }
